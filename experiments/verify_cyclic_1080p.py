@@ -1,8 +1,7 @@
 """Full-resolution (1920x1080) byte-exactness of the block-cyclic
 sharded render on the virtual 8-device CPU mesh.
 
-The production 8-chip projection (SCORECARD.md §4, BASELINE.md "Measured
-N-chip frame projection") renders 1920x1080 checkerboard frames through
+Multi-device 1080p frames render through
 ``parallel.sharded.render_frame_cyclic``.  The CPU-mesh exactness tests
 (`tests/test_parallel.py`) cover the same code path at reduced
 resolutions (<=256x128) to keep the suite fast; this script closes the

@@ -1,6 +1,6 @@
 // framesink — native presentation backend for voxelengine_tpu.
 //
-// TPU-native analog of the reference's SDLRenderer static library
+// Host-side analog of the reference's SDLRenderer static library
 // (SDLRenderer/SDLRenderer.{h,cpp}): where that wraps an SDL window with a
 // streaming ARGB8888 texture and a callback-driven render loop, this wraps
 // an asynchronous writer thread with a double-buffered BGRA frame queue so

@@ -1,15 +1,15 @@
 """Test harness configuration: run everything on a virtual 8-device CPU mesh
-(multi-chip sharding paths validated without TPU hardware).
+(multi-device sharding paths validated without accelerators).
 
-VOX_TPU_TESTS=1 skips the CPU forcing so the TPU smoke lane
-(test_tpu_smoke.py) can compile the Pallas kernels on real hardware:
-    VOX_TPU_TESTS=1 python -m pytest tests/test_tpu_smoke.py -q
+VOX_GPU_TESTS=1 skips the CPU forcing so the card lane (tests marked
+``gpu``, in test_gpu_smoke.py) compiles and runs on a real GPU:
+    VOX_GPU_TESTS=1 python -m pytest tests/test_gpu_smoke.py -q
 """
 
 import os
 
-_TPU_LANE = os.environ.get("VOX_TPU_TESTS") == "1"
-if not _TPU_LANE:
+_GPU_LANE = os.environ.get("VOX_GPU_TESTS") == "1"
+if not _GPU_LANE:
     os.environ.setdefault("JAX_PLATFORM_NAME", "cpu")
     flags = os.environ.get("XLA_FLAGS", "")
     if "xla_force_host_platform_device_count" not in flags:
@@ -19,7 +19,7 @@ if not _TPU_LANE:
 
 import jax  # noqa: E402
 
-if not _TPU_LANE:
+if not _GPU_LANE:
     jax.config.update("jax_platforms", "cpu")
 
 import numpy as np  # noqa: E402
@@ -74,3 +74,29 @@ def ray_batch():
     rays = targets - origins
     rays /= np.linalg.norm(rays, axis=1, keepdims=True)
     return origins, rays.astype(np.float32)
+
+
+@pytest.fixture()
+def kernel_traversal(monkeypatch):
+    """Route the CPU's traversal through the GPU kernel in interpret mode,
+    so a CPU test drives the kernel through the engine's normal entry
+    points (frames, queries, meshes).  ``.calls`` counts kernel traces."""
+    from voxelengine_tpu.ops import trace_kernel, traverse
+
+    class Route:
+        calls = 0
+
+    def trace(bm, o, d, ms, fused):
+        Route.calls += 1
+        return trace_kernel.trace_brickmap_kernel(bm, o, d, ms, interpret=True)
+
+    def advance(bm, st, ms, limit, z0, full_gz):
+        Route.calls += 1
+        return trace_kernel.advance_kernel(
+            bm, st, ms, limit, z0=z0, full_gz=full_gz, interpret=True
+        )
+
+    monkeypatch.setitem(traverse.TRAVERSALS, "cpu", (trace, advance))
+    jax.clear_caches()  # jitted entries traced with the XLA route
+    yield Route
+    jax.clear_caches()

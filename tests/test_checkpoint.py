@@ -51,27 +51,6 @@ def test_orbax_roundtrip(tmp_path, small_world):
     assert bm2.brick_layout is bm.brick_layout and bm2.dense_slots == bm.dense_slots
 
 
-def test_line_table_cache_roundtrip(tmp_path, small_world):
-    """line_table_or_build: second call loads byte-identical side tables
-    from disk without rebuilding (cold-start item: the bench paid 12.5 s
-    per process rebuilding the table in round 2)."""
-    from voxelengine_tpu.core.bitgrid import BitGrid
-    from voxelengine_tpu.core.brickmap import build_brickmap
-    from voxelengine_tpu.core.layout import Layout
-    from voxelengine_tpu.io.checkpoint import line_table_or_build
-
-    dense, _, _ = small_world
-    bm = build_brickmap(BitGrid.from_dense(dense), 8, coarse_layout=Layout.LINEAR)
-    lt1 = line_table_or_build(str(tmp_path), "w", bm)
-    assert (tmp_path / "w.lt.npz").exists()
-    lt2 = line_table_or_build(str(tmp_path), "w", bm)
-    assert np.array_equal(np.asarray(lt1.region_lines), np.asarray(lt2.region_lines))
-    assert np.array_equal(np.asarray(lt1.macro), np.asarray(lt2.macro))
-    assert np.array_equal(np.asarray(lt1.macro2), np.asarray(lt2.macro2))
-    assert lt2.num_regions == lt1.num_regions
-    assert lt2.region_dims == lt1.region_dims
-
-
 def test_generate_or_load_recovers_from_corrupt_cache(tmp_path, small_world):
     """A truncated .npz (kill mid-save) or a deleted .bricks.npy sidecar
     must trigger a rebuild, not a permanent load error."""
@@ -102,30 +81,14 @@ def test_generate_or_load_recovers_from_corrupt_cache(tmp_path, small_world):
     assert np.array_equal(np.asarray(bm3.bricks), np.asarray(bm1.bricks))
 
 
-def test_memo_json(tmp_path):
-    """memo_json computes once, persists across calls, survives numpy
-    scalars, and recomputes on a corrupt memo file."""
+def test_world_cache_is_at_repo_root(tmp_path, monkeypatch):
+    """The bench and apps cache worlds at <repo>/.world_cache whatever the
+    working directory is."""
     import os
 
-    from voxelengine_tpu.io.checkpoint import memo_json
+    from voxelengine_tpu.io import checkpoint
 
-    d = str(tmp_path)
-    calls = []
-
-    def probe():
-        calls.append(1)
-        return np.bool_(False)  # np scalar: must come back JSON-clean
-
-    a = memo_json(d, "probe_k1", probe)
-    b = memo_json(d, "probe_k1", probe)
-    assert len(calls) == 1
-    assert a is False or a == False  # noqa: E712 — json round-trip value
-    assert b == a
-    # a different key computes independently
-    c = memo_json(d, "probe_k2", lambda: True)
-    assert c is True
-    # corrupt memo: recompute instead of crashing
-    with open(os.path.join(d, "probe_k1.memo.json"), "w") as f:
-        f.write("{broken")
-    e = memo_json(d, "probe_k1", probe)
-    assert len(calls) == 2 and e == a
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    monkeypatch.chdir(tmp_path)
+    assert checkpoint.WORLD_CACHE == os.path.join(repo, ".world_cache")
+    assert os.path.isabs(checkpoint.WORLD_CACHE)

@@ -75,9 +75,7 @@ def test_zsharded_render_matches_single_device(rng, mesh):
     from voxelengine_tpu.render.frame import make_framebuffer, render_frame
 
     bm, _, _ = _world_and_rays(rng)
-    cfg = RenderConfig(
-        width=128, height=64, checkerboard=True, staged_trace=False
-    )
+    cfg = RenderConfig(width=128, height=64, checkerboard=True)
     env = Environment.default()
     origin = jnp.asarray([96.0, 80.0, 96.0], jnp.float32)
     euler = jnp.asarray([-0.6, 0.7, 0.0], jnp.float32)
@@ -90,19 +88,25 @@ def test_zsharded_render_matches_single_device(rng, mesh):
     assert np.allclose(np.asarray(fa), np.asarray(fb), atol=1e-6)
 
 
-# --- replicated-walk distributed tracing through the flagship kernel ---
+# --- the migration path with the GPU traversal kernel (interpret mode) ---
 
 
-def test_zsharded_hbm_single_slab_geometry_exact(rng, mesh):
-    """All geometry in one z-slab: every ray can only graze its hit slab,
-    so the replicated-walk distributed trace must equal the single-device
-    flagship kernel on EVERY field, steps included (see the design note in
-    parallel/distributed.py for why grazing is the only steps delta)."""
-    from voxelengine_tpu.ops.pallas_bigtrace import make_line_table, trace_brickmap_hbm
-    from voxelengine_tpu.parallel.distributed import (
-        make_zsharded_hbm,
-        trace_brickmap_hbm_zsharded,
+def _assert_same(ref, out):
+    hr, ho = np.asarray(ref.hit), np.asarray(out.hit)
+    assert hr.any() and (hr == ho).all(), (
+        f"hit mismatch at {np.flatnonzero(hr != ho)[:8]}"
     )
+    assert np.array_equal(np.asarray(ref.steps), np.asarray(out.steps))
+    m = hr
+    assert np.array_equal(np.asarray(ref.position)[m], np.asarray(out.position)[m])
+    assert np.array_equal(np.asarray(ref.normal)[m], np.asarray(out.normal)[m])
+
+
+def test_zsharded_hbm_single_slab_geometry_exact(rng, mesh, kernel_traversal):
+    """All geometry in one z-slab: the per-slab kernel walks (pausing and
+    resuming rays at slab borders) equal the single-device kernel on
+    EVERY field, steps included."""
+    from voxelengine_tpu.ops.trace_kernel import trace_brickmap_kernel
 
     dense = np.zeros((64, 64, 64), bool)  # [z, y, x]
     dense[16:24, :, :] = rng.random((8, 64, 64)) < 0.1  # one z-slab only
@@ -114,73 +118,44 @@ def test_zsharded_hbm_single_slab_geometry_exact(rng, mesh):
     d /= np.linalg.norm(d, axis=1, keepdims=True)
     origins, d = jnp.asarray(origins), jnp.asarray(d.astype(np.float32))
 
-    lt = make_line_table(bm)
-    ref = trace_brickmap_hbm(bm, lt, origins, d, 512, tile=256, num_slots=4)
-    zw = make_zsharded_hbm(bm, 8)
-    out = trace_brickmap_hbm_zsharded(zw, origins, d, mesh, 512, tile=256, num_slots=4)
-
-    hr, ho = np.asarray(ref.hit), np.asarray(out.hit)
-    assert hr.any() and (hr == ho).all()
-    assert np.array_equal(np.asarray(ref.steps), np.asarray(out.steps))
-    m = hr
-    assert np.array_equal(np.asarray(ref.position)[m], np.asarray(out.position)[m])
-    assert np.array_equal(np.asarray(ref.normal)[m], np.asarray(out.normal)[m])
+    ref = trace_brickmap_kernel(bm, origins, d, 512, interpret=True)
+    out = trace_brickmap_zsharded(bm, origins, d, mesh, 512)
+    _assert_same(ref, out)
+    assert kernel_traversal.calls > 0
 
 
-def test_zsharded_hbm_random_world_hits_exact(rng, mesh):
-    """Random multi-slab world: hits, positions and normals equal the
-    single-device kernel exactly; steps are the hit-owner's charge, which
-    never exceeds the global walk's (foreign grazes charge as empty)."""
-    from voxelengine_tpu.ops.pallas_bigtrace import make_line_table, trace_brickmap_hbm
-    from voxelengine_tpu.parallel.distributed import (
-        make_zsharded_hbm,
-        trace_brickmap_hbm_zsharded,
-    )
+def test_zsharded_hbm_random_world_hits_exact(rng, mesh, kernel_traversal):
+    """Random multi-slab world (geometry in every slab, so rays migrate
+    mid-walk): hits, positions, normals and steps equal the single-device
+    kernel exactly."""
+    from voxelengine_tpu.ops.trace_kernel import trace_brickmap_kernel
 
     bm, origins, d = _world_and_rays(rng)
-    lt = make_line_table(bm)
-    ref = trace_brickmap_hbm(bm, lt, origins, d, 512, tile=256, num_slots=4)
-    zw = make_zsharded_hbm(bm, 8)
-    out = trace_brickmap_hbm_zsharded(zw, origins, d, mesh, 512, tile=256, num_slots=4)
+    ref = trace_brickmap_kernel(bm, origins, d, 512, interpret=True)
+    out = trace_brickmap_zsharded(bm, origins, d, mesh, 512)
+    _assert_same(ref, out)
 
-    hr, ho = np.asarray(ref.hit), np.asarray(out.hit)
-    assert hr.any() and (hr == ho).all(), (
-        f"hit mismatch at {np.flatnonzero(hr != ho)[:8]}"
+
+def test_zsharded_hbm_slab_boundary_corner_graze(mesh, kernel_traversal):
+    """Exact lattice-corner crossing ON a slab boundary.  A diagonal ray
+    through corner (32,32,32) grazes one voxel just below the boundary
+    (owned by slab 3) and enters one just above (slab 4).  The DDA's tie
+    semantics *tunnel* through the corner: the grazed below-boundary voxel
+    is never entered (identically in the kernel, the XLA traversal and the
+    scalar oracle), and the migrated walk must reproduce the single-device
+    hit bit-for-bit.  Pinned for both ray directions (the migration
+    direction flips with the z sign)."""
+    from voxelengine_tpu.oracle.reference import (
+        make_brickmap_callbacks,
+        raytrace_brickmap,
     )
-    m = hr
-    assert np.array_equal(np.asarray(ref.position)[m], np.asarray(out.position)[m])
-    assert np.array_equal(np.asarray(ref.normal)[m], np.asarray(out.normal)[m])
-    assert (np.asarray(out.steps) <= np.asarray(ref.steps)).all()
-    # the deltas are exactly the foreign-slab grazes; this world has floor
-    # geometry in every slab so grazing is common — still, rays that hit
-    # in their first occupied slab match exactly
-    eq = (np.asarray(out.steps) == np.asarray(ref.steps)).mean()
-    assert eq > 0.2, f"steps equal on only {eq:.0%} of rays"
-
-
-def test_zsharded_hbm_slab_boundary_corner_graze(mesh):
-    """Exact lattice-corner crossing ON a slab boundary — the adversarial
-    case for the replicated walk's min-t combine.  A diagonal ray through
-    corner (32,32,32) grazes one voxel just below the boundary (owned by
-    slab 3) and enters one just above (slab 4).  The DDA's tie semantics
-    *tunnel* through the corner: the grazed below-boundary voxel is never
-    entered (measured identically on the XLA and Pallas backends), so the
-    per-slab walks cannot produce an exact-geometry float-equal tie and
-    the combine must reproduce the single-device hit bit-for-bit.  Pinned
-    for both ray directions (the combine's walk-order rank flips with the
-    z sign).  Also guards the masked-slab premise itself: the grazed-only
-    world misses, the entered-only world hits at the corner."""
-    from voxelengine_tpu.ops.pallas_bigtrace import make_line_table, trace_brickmap_hbm
-    from voxelengine_tpu.parallel.distributed import (
-        make_zsharded_hbm,
-        trace_brickmap_hbm_zsharded,
-    )
+    from voxelengine_tpu.ops.trace_kernel import trace_brickmap_kernel
 
     def world(vox):
         dense = np.zeros((64, 64, 64), bool)  # [z, y, x]
         for (x, y, z) in vox:
             dense[z, y, x] = True
-        return build_brickmap(
+        return dense, build_brickmap(
             BitGrid.from_dense(dense), 8, coarse_layout=Layout.LINEAR
         )
 
@@ -194,22 +169,11 @@ def test_zsharded_hbm_slab_boundary_corner_graze(mesh):
         o = jnp.asarray([o], jnp.float32)
         d = jnp.asarray([d], jnp.float32)
 
-        # masked-slab premise: grazed-only misses, entered-only hits the
-        # corner — pinned on all three backends (kernel, XLA, scalar
-        # reference oracle)
-        from voxelengine_tpu.oracle.reference import (
-            make_brickmap_callbacks,
-            raytrace_brickmap,
-        )
-
+        # premise: grazed-only misses, entered-only hits the corner, on
+        # the kernel, the XLA traversal and the scalar oracle
         for vox, want_hit in [([grazed], False), ([entered], True)]:
-            dense = np.zeros((64, 64, 64), bool)
-            for (x, y, z) in vox:
-                dense[z, y, x] = True
-            bm1 = world(vox)
-            one = trace_brickmap_hbm(
-                bm1, make_line_table(bm1), o, d, 512, tile=256, num_slots=4
-            )
+            dense, bm1 = world(vox)
+            one = trace_brickmap_kernel(bm1, o, d, 512, interpret=True)
             assert bool(np.asarray(one.hit)[0]) is want_hit
             xla = trace_brickmap(bm1, o, d, 512)
             assert np.array_equal(np.asarray(one.hit), np.asarray(xla.hit))
@@ -225,33 +189,18 @@ def test_zsharded_hbm_slab_boundary_corner_graze(mesh):
                 )
         assert np.array_equal(np.asarray(one.position), [[32.0, 32.0, 32.0]])
 
-        # distributed combine == single-device kernel on the full world
-        bm = world([grazed, entered])
-        ref = trace_brickmap_hbm(
-            bm, make_line_table(bm), o, d, 512, tile=256, num_slots=4
-        )
-        zw = make_zsharded_hbm(bm, 8)
-        out = trace_brickmap_hbm_zsharded(
-            zw, o, d, mesh, 512, tile=256, num_slots=4
-        )
-        assert np.array_equal(np.asarray(ref.hit), np.asarray(out.hit))
-        assert np.array_equal(np.asarray(ref.position), np.asarray(out.position))
-        assert np.array_equal(np.asarray(ref.normal), np.asarray(out.normal))
-        assert np.array_equal(np.asarray(ref.steps), np.asarray(out.steps))
+        # migrated walk == single-device kernel on the full world
+        _, bm = world([grazed, entered])
+        ref = trace_brickmap_kernel(bm, o, d, 512, interpret=True)
+        out = trace_brickmap_zsharded(bm, o, d, mesh, 512)
+        _assert_same(ref, out)
 
 
-def test_zsharded_render_hbm_matches_single(rng, mesh):
-    """render_frame_zsharded(zw=...) — the distributed-memory frame path
-    through the flagship kernel — produces the same frame as the
-    single-device render (primary-ray mode; hit/pos/normal drive shading
-    and are exact on this path)."""
-    from jax.sharding import NamedSharding, PartitionSpec as P
+def test_zsharded_render_hbm_matches_single(rng, mesh, kernel_traversal):
+    """render_frame_zsharded with the kernel traversal produces the same
+    frame as the single-device render."""
     from voxelengine_tpu.config import Environment, RenderConfig
-    from voxelengine_tpu.ops.pallas_bigtrace import make_line_table
-    from voxelengine_tpu.parallel.distributed import (
-        make_zsharded_hbm,
-        render_frame_zsharded,
-    )
+    from voxelengine_tpu.parallel.distributed import render_frame_zsharded
     from voxelengine_tpu.render.frame import make_framebuffer, render_frame
 
     bm, _, _ = _world_and_rays(rng)
@@ -260,29 +209,20 @@ def test_zsharded_render_hbm_matches_single(rng, mesh):
     origin = jnp.asarray([32.0, 48.0, 32.0], jnp.float32)
     euler = jnp.asarray([-0.6, 0.4, 0.0], jnp.float32)
 
-    lt = make_line_table(bm)
     ref = render_frame(bm, make_framebuffer(cfg), origin, euler, env,
-                       jnp.int32(0), cfg, lt=lt)
-    zw = jax.device_put(make_zsharded_hbm(bm, 8), NamedSharding(mesh, P("shards")))
+                       jnp.int32(0), cfg)
     out = render_frame_zsharded(bm, make_framebuffer(cfg), origin, euler, env,
-                                jnp.int32(0), cfg, mesh, zw=zw)
+                                jnp.int32(0), cfg, mesh)
     assert np.array_equal(np.asarray(ref), np.asarray(out))
 
 
 def test_zsharded_render_secondary_shading(rng, mesh):
-    """Shadow + AO rays route through the sharded tracers (they are just
-    more ray batches).  The XLA migration path carries exact global step
-    budgets, so the shaded frame matches single-device to float tolerance;
-    the replicated-walk kernel path matches up to the documented per-slab
-    budget delta on 8-step AO rays, whose falloff makes far-hit/miss
-    disagreements invisible at 3e-2."""
-    from jax.sharding import NamedSharding, PartitionSpec as P
+    """Shadow + AO rays route through the sharded tracer (they are just
+    more ray batches).  The migration path carries exact global step
+    budgets, so the shaded frame matches single-device to float
+    tolerance."""
     from voxelengine_tpu.config import Environment, RenderConfig
-    from voxelengine_tpu.ops.pallas_bigtrace import make_line_table
-    from voxelengine_tpu.parallel.distributed import (
-        make_zsharded_hbm,
-        render_frame_zsharded,
-    )
+    from voxelengine_tpu.parallel.distributed import render_frame_zsharded
     from voxelengine_tpu.render.frame import make_framebuffer, render_frame
 
     bm, _, _ = _world_and_rays(rng)
@@ -294,21 +234,11 @@ def test_zsharded_render_secondary_shading(rng, mesh):
     origin = jnp.asarray([32.0, 48.0, 32.0], jnp.float32)
     euler = jnp.asarray([-0.6, 0.4, 0.0], jnp.float32)
 
-    # XLA migration path: global budgets -> same frame
     ref = render_frame(bm, make_framebuffer(cfg), origin, euler, env,
                        jnp.int32(0), cfg)
     out = render_frame_zsharded(bm, make_framebuffer(cfg), origin, euler,
                                 env, jnp.int32(0), cfg, mesh)
     assert np.allclose(np.asarray(ref), np.asarray(out), atol=1e-6)
-
-    # replicated-walk kernel path: shadows exact, AO within falloff noise
-    lt = make_line_table(bm)
-    refk = render_frame(bm, make_framebuffer(cfg), origin, euler, env,
-                        jnp.int32(0), cfg, lt=lt)
-    zw = jax.device_put(make_zsharded_hbm(bm, 8), NamedSharding(mesh, P("shards")))
-    outk = render_frame_zsharded(bm, make_framebuffer(cfg), origin, euler,
-                                 env, jnp.int32(0), cfg, mesh, zw=zw)
-    assert np.allclose(np.asarray(refk), np.asarray(outk), atol=3e-2)
 
 
 def test_zsharded_render_reflections_only(rng, mesh):

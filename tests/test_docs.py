@@ -26,11 +26,10 @@ DOCUMENTED = [
     ("voxelengine_tpu.ops.aabb", ["ray_aabb"]),
     ("voxelengine_tpu.ops.trace",
      ["trace_grid", "trace_brickmap", "trace_brickmap_staged"]),
-    ("voxelengine_tpu.ops.pallas_trace", ["trace_grid_mxu", "trace_grid_vpu"]),
-    ("voxelengine_tpu.ops.pallas_trace2", ["trace_brickmap_mxu"]),
-    ("voxelengine_tpu.ops.pallas_bigtrace",
-     ["trace_brickmap_hbm", "make_line_table", "materialize_brick_lines",
-      "host_brick_lines", "apply_edits_hbm", "LineTable"]),
+    ("voxelengine_tpu.ops.trace_kernel",
+     ["trace_brickmap_kernel", "advance_kernel", "BLOCK"]),
+    ("voxelengine_tpu.ops.traverse",
+     ["trace_rays", "advance", "select_traversal"]),
     ("voxelengine_tpu.ops.dda2d", ["grid2d_from_dense"]),
     ("voxelengine_tpu.ops.crossing_trace",
      ["trace_ray_crossings", "format_crossings"]),
@@ -43,20 +42,18 @@ DOCUMENTED = [
     ("voxelengine_tpu.render.camera", ["get_directions", "get_directions_np"]),
     ("voxelengine_tpu.render.frame",
      ["render_frame", "make_framebuffer", "composite_frame", "primary_rays",
-      "shade_traced", "to_bgra8", "probe_use_macro"]),
+      "shade_traced", "to_bgra8", "render_frame_dense"]),
     ("voxelengine_tpu.render.shading", ["calculate_color", "tonemap", "reflect"]),
     ("voxelengine_tpu.render.graphics", ["Graphics"]),
     ("voxelengine_tpu.runtime.display", ["Renderer", "CallbackData"]),
     ("voxelengine_tpu.runtime.input", ["TtyInput", "ScriptedInput"]),
     ("voxelengine_tpu.io.checkpoint",
-     ["generate_or_load", "line_table_or_build", "memo_json",
-      "save_world", "load_world", "load_world_host_bricks"]),
+     ["generate_or_load", "save_world", "load_world", "WORLD_CACHE"]),
     ("voxelengine_tpu.parallel.sharded",
      ["render_frame_sharded", "render_frame_cyclic", "cyclic_to_image",
       "raytrace_sharded"]),
     ("voxelengine_tpu.parallel.distributed",
-     ["shard_world_z", "trace_brickmap_zsharded", "make_zsharded_hbm",
-      "trace_brickmap_hbm_zsharded", "render_frame_zsharded"]),
+     ["shard_world_z", "trace_brickmap_zsharded", "render_frame_zsharded"]),
     ("voxelengine_tpu.utils.profiling", ["timed", "FrameTimer", "TraceStats"]),
     ("voxelengine_tpu.config",
      ["MAX_STEPS", "DebugView", "Projection", "Environment", "RenderConfig"]),
@@ -81,8 +78,7 @@ def test_documented_config_fields():
     for name in ["width", "height", "checkerboard", "debug_view",
                  "projection", "shadow_rays", "ao_samples", "reflections",
                  "reflectivity", "crosshair", "max_steps", "fov_degrees",
-                 "trace_tile", "trace_slots", "trace_shortlist",
-                 "trace_use_macro", "tile_order", "staged_trace"]:
+                 "tile_order"]:
         assert name in cfg_fields, name
     env_fields = {f.name for f in dataclasses.fields(Environment)}
     assert {"light_direction", "light_color", "ambient_color"} <= env_fields
@@ -113,7 +109,7 @@ def test_documented_facade_surface():
     from voxelengine_tpu.render.graphics import Graphics
     from voxelengine_tpu.runtime.display import Renderer
 
-    for name in ["upload_world", "upload_voxel_buffer", "upload_world_lines",
+    for name in ["upload_world", "upload_voxel_buffer",
                  "set_factor", "get_factor", "raytrace", "edit_voxels"]:
         assert hasattr(VoxelRaytracer3D, name), name
     for name in ["set_environment", "set_fov", "set_ortho_window_size",

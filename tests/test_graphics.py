@@ -1,5 +1,6 @@
 """Graphics facade tests (API parity with GPUDDA::Graphics)."""
 
+import jax.numpy as jnp
 import numpy as np
 
 from voxelengine_tpu import VoxelRaytracer3D
@@ -54,22 +55,22 @@ def test_graphics_ortho_zoom_is_traced(small_world):
     assert not np.array_equal(fb1, fb2)  # zoom actually applied
 
 
-def test_graphics_facade_uses_line_table(small_world):
-    """render_screen must trace through rt.line_table when one exists
-    (regression: the facade silently bypassed the flagship kernel)."""
-    from voxelengine_tpu.core.brickmap import build_brickmap
-    from voxelengine_tpu.core.layout import Layout
+def test_graphics_facade_uses_line_table(small_world, kernel_traversal):
+    """render_screen must trace through the platform's traversal (here the
+    GPU kernel, interpret mode) like render_frame does (regression: the
+    facade once silently bypassed the flagship traversal)."""
+    from voxelengine_tpu.render.frame import make_framebuffer, render_frame
 
     _, grid, _ = small_world
-    bm = build_brickmap(grid, 8, coarse_layout=Layout.LINEAR)
     rt = VoxelRaytracer3D()
-    rt.upload_world(bm)
-    assert rt.line_table is not None
-    g = Graphics(width=16, height=8, checkerboard=False, trace_tile=1024)
+    rt.upload_voxel_buffer(grid, 8)
+    g = Graphics(width=16, height=8, checkerboard=False)
     fb = np.asarray(g.render_screen(rt, [16.0, 20.0, 16.0], [-0.8, 0.4, 0.0]))
+    assert kernel_traversal.calls > 0
 
-    rt2 = VoxelRaytracer3D(line_table=False)
-    rt2.upload_world(build_brickmap(grid, 8, coarse_layout=Layout.LINEAR))
-    g2 = Graphics(width=16, height=8, checkerboard=False, trace_tile=1024)
-    fb2 = np.asarray(g2.render_screen(rt2, [16.0, 20.0, 16.0], [-0.8, 0.4, 0.0]))
-    assert np.array_equal(fb, fb2)
+    ref = render_frame(
+        rt.world, make_framebuffer(g.config),
+        jnp.asarray([16.0, 20.0, 16.0]), jnp.asarray([-0.8, 0.4, 0.0]),
+        g.environment, jnp.int32(0), g.config,
+    )
+    assert np.array_equal(fb, np.asarray(ref))

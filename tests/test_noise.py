@@ -53,8 +53,8 @@ def test_perlin_bit_exact(golden):
 
 def test_repeater_perlin_bit_exact(golden):
     got = np.asarray(N.repeater_perlin(jnp.asarray(COORDS), 1.0, 0x71889283, 32, 2.0, 0.5))
-    # bit-exact on TPU (verified on hardware); XLA *CPU* contracts one FMA in
-    # the scanned octave body, so allow ~1 ulp there
+    # XLA's CPU backend contracts one FMA in the scanned octave body, so
+    # allow ~1 ulp against the golden C++ values
     assert np.allclose(got, np.array(golden["repeater_perlin"], np.float32), rtol=3e-6, atol=3e-7)
 
 

@@ -197,7 +197,8 @@ def test_brickmap_matches_grid_fractional_word_factors(rng):
 
 def test_exact_tie_semantics_pinned():
     """Measure-zero DDA tie cases, pinned identically on all three
-    backends (scalar oracle, XLA state machine, HBM Pallas kernel).  The
+    backends (scalar oracle, XLA state machine, GPU traversal kernel in
+    interpret mode).  The
     random parity tests above never produce exact ties; these rays are
     constructed to land on lattice planes/edges/corners bit-exactly:
 
@@ -213,10 +214,7 @@ def test_exact_tie_semantics_pinned():
     from voxelengine_tpu.core.bitgrid import BitGrid
     from voxelengine_tpu.core.brickmap import build_brickmap
     from voxelengine_tpu.core.layout import Layout
-    from voxelengine_tpu.ops.pallas_bigtrace import (
-        make_line_table,
-        trace_brickmap_hbm,
-    )
+    from voxelengine_tpu.ops.trace_kernel import trace_brickmap_kernel
 
     cases = [
         # (solid voxels [x,y,z], origin, direction,
@@ -238,9 +236,7 @@ def test_exact_tie_semantics_pinned():
         )
         oo = jnp.asarray([o], jnp.float32)
         dd = jnp.asarray([d], jnp.float32)
-        k = trace_brickmap_hbm(
-            bm, make_line_table(bm), oo, dd, 512, tile=256, num_slots=4
-        )
+        k = trace_brickmap_kernel(bm, oo, dd, 512, interpret=True)
         x = trace_brickmap(bm, oo, dd, 512)
         co, dims, bo, cb = R.make_brickmap_callbacks(dense, 8)
         orc = R.raytrace_brickmap(

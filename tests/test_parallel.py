@@ -43,35 +43,28 @@ def test_sharded_render_matches_single(small_world, mesh):
     assert len(fb.addressable_shards) == 8
 
 
-def test_sharded_render_hbm_kernel_matches_single(small_world, mesh):
-    """The flagship Pallas line-table traversal under the 8-device mesh
-    (interpret mode on CPU): sharded render == single-device render, both
-    tracing through trace_brickmap_hbm."""
-    from voxelengine_tpu.core.bitgrid import BitGrid
-    from voxelengine_tpu.core.brickmap import build_brickmap
-    from voxelengine_tpu.core.layout import Layout
-    from voxelengine_tpu.ops.pallas_bigtrace import make_line_table
-
-    dense, _, _ = small_world
-    bm = build_brickmap(BitGrid.from_dense(dense), 8, coarse_layout=Layout.LINEAR)
-    lt = make_line_table(bm)
+def test_sharded_render_hbm_kernel_matches_single(
+    small_world, mesh, kernel_traversal
+):
+    """The GPU traversal kernel (interpret mode) under the 8-device mesh:
+    sharded render == single-device render, both tracing through
+    trace_brickmap_kernel, with tile-ordered rays."""
+    _, _, bm = small_world
     env = Environment.default()
-    cfg = RenderConfig(width=64, height=32, checkerboard=True, tile_order=True,
-                       trace_tile=128, trace_slots=4)
+    cfg = RenderConfig(width=64, height=32, checkerboard=True, tile_order=True)
     origin = jnp.asarray([16.0, 20.0, 16.0])
     euler = jnp.asarray([0.9, 0.3, 0.0])
     bmr = replicate_world(mesh, bm)
-    ltr = jax.device_put(lt, NamedSharding(mesh, P()))
     fb = jax.device_put(make_framebuffer(cfg), NamedSharding(mesh, P("rows")))
     ref = make_framebuffer(cfg)
     for i in range(2):  # both checkerboard parities (halo row crossing)
         fb = render_frame_sharded(
-            bmr, fb, origin, euler, env, jnp.int32(i), cfg, mesh, ltr
+            bmr, fb, origin, euler, env, jnp.int32(i), cfg, mesh
         )
-        ref = render_frame(bm, ref, origin, euler, env, jnp.int32(i), cfg,
-                           None, lt)
+        ref = render_frame(bm, ref, origin, euler, env, jnp.int32(i), cfg)
         assert np.array_equal(np.asarray(fb), np.asarray(ref)), f"frame {i}"
     assert len(fb.addressable_shards) == 8
+    assert kernel_traversal.calls > 0
 
 
 def test_sharded_rays_match_and_psum(small_world, ray_batch, mesh):
@@ -120,27 +113,24 @@ def test_sharded_render_secondary_shading_matches_single(small_world, mesh):
     assert np.allclose(np.asarray(fb), np.asarray(ref), atol=1e-6)
 
 
-def test_sharded_rays_through_flagship_kernel(small_world, ray_batch, mesh):
-    """raytrace_sharded(lt=...): each device traces its ray shard through
-    the HBM Pallas kernel; results equal the single-device kernel."""
-    from voxelengine_tpu.core.brickmap import build_brickmap
-    from voxelengine_tpu.core.layout import Layout
-    from voxelengine_tpu.ops.pallas_bigtrace import make_line_table, trace_brickmap_hbm
+def test_sharded_rays_through_flagship_kernel(
+    small_world, ray_batch, mesh, kernel_traversal
+):
+    """raytrace_sharded with the GPU traversal kernel (interpret mode):
+    each device traces its ray shard through the kernel; results equal
+    the single-device kernel."""
+    from voxelengine_tpu.ops.trace_kernel import trace_brickmap_kernel
 
-    _, grid, _ = small_world
-    bm = build_brickmap(grid, 8, coarse_layout=Layout.LINEAR)
+    _, _, bm = small_world
     origins, rays = ray_batch
     n = (len(origins) // 8) * 8
     o, r = jnp.asarray(origins[:n]), jnp.asarray(rays[:n])
 
-    lt = make_line_table(bm)
-    ref = trace_brickmap_hbm(bm, lt, o, r, 512, tile=256, num_slots=4)
+    ref = trace_brickmap_kernel(bm, o, r, 512, interpret=True)
 
     bmr = replicate_world(mesh, bm)
-    ltr = jax.device_put(lt, NamedSharding(mesh, P()))
-    out, mean_steps = raytrace_sharded(
-        bmr, o, r, mesh, max_steps=512, lt=ltr, tile=256, num_slots=4
-    )
+    out, mean_steps = raytrace_sharded(bmr, o, r, mesh, max_steps=512)
+    assert kernel_traversal.calls > 0
     assert np.array_equal(np.asarray(out.hit), np.asarray(ref.hit))
     m = np.asarray(ref.hit)
     assert np.array_equal(np.asarray(out.position)[m], np.asarray(ref.position)[m])
@@ -198,13 +188,9 @@ def test_cyclic_render_plain_writes(small_world, mesh):
     assert np.array_equal(cyclic_to_image(fb, cfg), np.asarray(ref))
 
 
-def test_cyclic_render_hbm_kernel_matches_single(small_world):
-    """Block-cyclic sharding through the flagship HBM line-table kernel
-    (interpret mode on CPU), 4-device mesh."""
-    from voxelengine_tpu.core.bitgrid import BitGrid
-    from voxelengine_tpu.core.brickmap import build_brickmap
-    from voxelengine_tpu.core.layout import Layout
-    from voxelengine_tpu.ops.pallas_bigtrace import make_line_table
+def test_cyclic_render_hbm_kernel_matches_single(small_world, kernel_traversal):
+    """Block-cyclic sharding through the GPU traversal kernel (interpret
+    mode), 4-device mesh."""
     from voxelengine_tpu.parallel.sharded import (
         cyclic_to_image,
         make_framebuffer_cyclic,
@@ -212,22 +198,18 @@ def test_cyclic_render_hbm_kernel_matches_single(small_world):
     )
 
     mesh4 = make_mesh(jax.devices()[:4])
-    dense, _, _ = small_world
-    bm = build_brickmap(BitGrid.from_dense(dense), 8, coarse_layout=Layout.LINEAR)
-    lt = make_line_table(bm)
+    _, _, bm = small_world
     env = Environment.default()
     # 128x64 checkerboard -> 32x32 blocks, 4x1 grid = 4 blocks over 4 devs
-    cfg = RenderConfig(width=128, height=64, checkerboard=True,
-                       trace_tile=128, trace_slots=4)
+    cfg = RenderConfig(width=128, height=64, checkerboard=True)
     origin = jnp.asarray([16.0, 20.0, 16.0])
     euler = jnp.asarray([0.9, 0.3, 0.0])
     bmr = replicate_world(mesh4, bm)
-    ltr = jax.device_put(lt, NamedSharding(mesh4, P()))
     fb = make_framebuffer_cyclic(cfg, mesh4)
     ref = make_framebuffer(cfg)
     for i in range(2):
         fb = render_frame_cyclic(bmr, fb, origin, euler, env, jnp.int32(i),
-                                 cfg, mesh4, ltr)
-        ref = render_frame(bm, ref, origin, euler, env, jnp.int32(i), cfg,
-                           None, lt)
+                                 cfg, mesh4)
+        ref = render_frame(bm, ref, origin, euler, env, jnp.int32(i), cfg)
         assert np.array_equal(cyclic_to_image(fb, cfg), np.asarray(ref)), f"frame {i}"
+    assert kernel_traversal.calls > 0

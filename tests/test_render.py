@@ -2,6 +2,7 @@
 
 import jax.numpy as jnp
 import numpy as np
+import pytest
 
 from voxelengine_tpu.config import DebugView, Environment, Projection, RenderConfig
 from voxelengine_tpu.render import camera as cam
@@ -288,7 +289,7 @@ def test_reflections_golden_vs_manual():
     origin = jnp.asarray([16.0, 20.0, 24.0])
     euler = jnp.asarray([-0.9, 0.0, 0.0])  # look down toward the floor
     cfg = RenderConfig(width=32, height=16, checkerboard=False,
-                       crosshair=False, staged_trace=False,
+                       crosshair=False,
                        reflections=True, reflectivity=0.35)
     fb = np.asarray(render_frame(bm, make_framebuffer(cfg), origin, euler,
                                  env, jnp.int32(0), cfg))
@@ -359,44 +360,13 @@ def test_ortho_zoom_traced_override_matches_static(small_world):
     fa = render_frame(bm, make_framebuffer(base), o, e, env, jnp.int32(0),
                       cfg_static)
     fb = render_frame(bm, make_framebuffer(base), o, e, env, jnp.int32(0),
-                      base, None, None, None,
+                      base, None,
                       jnp.asarray([40.0, 30.0], jnp.float32))
     assert bool(jnp.all(fa == fb))
     fc = render_frame(bm, make_framebuffer(base), o, e, env, jnp.int32(0),
-                      base, None, None, None,
+                      base, None,
                       jnp.asarray([80.0, 60.0], jnp.float32))
     assert not bool(jnp.all(fb == fc))
-
-
-def test_block_permutation_composes_with_prev_perm():
-    """Temporal chaining: when frame N itself rendered under a permutation,
-    the steps stream is in permuted block order; prev_perm maps the sorted
-    stream slots back to original block ids."""
-    from voxelengine_tpu.render.frame import (
-        block_geometry,
-        block_permutation_from_steps,
-    )
-
-    cfg = RenderConfig(width=32, height=16, checkerboard=False, tile_order=True)
-    bw, bh, nb = block_geometry(cfg)
-    rng = np.random.default_rng(0)
-    cost = rng.permutation(nb).astype(np.int32)  # distinct per-block costs
-    steps_orig = np.repeat(cost, bw * bh)  # block-constant steps, tile order
-    want = np.argsort(-cost)  # heaviest ORIGINAL block first
-
-    # unpermuted frame: identity mapping
-    got0 = np.asarray(
-        block_permutation_from_steps(jnp.asarray(steps_orig), cfg)
-    )
-    assert np.array_equal(got0, want)
-
-    # frame N rendered under perm P: stream block j is original block P[j]
-    perm = rng.permutation(nb)
-    steps_stream = steps_orig.reshape(nb, -1)[perm].reshape(-1)
-    got = np.asarray(block_permutation_from_steps(
-        jnp.asarray(steps_stream), cfg, prev_perm=jnp.asarray(perm)
-    ))
-    assert np.array_equal(got, want)
 
 
 def test_composite_odd_height_checkerboard_scatter_branch():
@@ -429,3 +399,52 @@ def test_composite_odd_height_checkerboard_scatter_branch():
                 if wm[yr, x] and py < H:
                     exp[py, x] = c[yr, x]
         assert np.array_equal(got, exp), f"frame parity {frame}"
+
+
+def test_render_frame_dense_matches_brickmap(rng):
+    import jax.numpy as jnp
+    from voxelengine_tpu.config import Environment, RenderConfig
+    from voxelengine_tpu.core.brickmap import build_brickmap
+    from voxelengine_tpu.render.frame import (
+        make_framebuffer,
+        render_frame,
+        render_frame_dense,
+    )
+    from voxelengine_tpu.worldgen.terrain import generate_world
+
+    grid = generate_world((64, 64, 64), octaves=4)
+    bm = build_brickmap(grid, 8)
+    cfg = RenderConfig(width=64, height=48, checkerboard=False)
+    env = Environment.default()
+    o = jnp.asarray([32.0, 40.0, -20.0])
+    e = jnp.asarray([-0.35, 3.14159, 0.0])
+    a = render_frame(bm, make_framebuffer(cfg), o, e, env, jnp.int32(0), cfg)
+    b = render_frame_dense(
+        grid, make_framebuffer(cfg), o, e, env, jnp.int32(0), cfg
+    )
+    assert np.abs(np.asarray(a) - np.asarray(b)).max() < 1e-5
+
+
+@pytest.mark.parametrize("traversal", ["xla", "kernel"])
+def test_tile_order_frames_identical(small_world, request, traversal):
+    """Pixel-block ray order (the default) only reorders the rays: the
+    composited frames equal raster order on both checkerboard parities,
+    through the XLA traversal and the GPU kernel (interpret mode)."""
+    import dataclasses
+
+    from voxelengine_tpu.render.frame import make_framebuffer, render_frame
+
+    if traversal == "kernel":
+        request.getfixturevalue("kernel_traversal")
+    _, _, bm = small_world
+    env = Environment.default()
+    cfg = RenderConfig(width=64, height=60, checkerboard=True, shadow_rays=True)
+    assert cfg.tile_order
+    raster = dataclasses.replace(cfg, tile_order=False)
+    o = jnp.asarray([16.0, 20.0, 16.0])
+    e = jnp.asarray([0.9, 0.3, 0.0])
+    for i in range(2):
+        a = render_frame(bm, make_framebuffer(cfg), o, e, env, jnp.int32(i), cfg)
+        b = render_frame(bm, make_framebuffer(raster), o, e, env, jnp.int32(i),
+                         raster)
+        assert np.array_equal(np.asarray(a), np.asarray(b)), i

@@ -1,4 +1,4 @@
-"""voxelengine_tpu — a TPU-native realtime voxel raytracing framework.
+"""voxelengine_tpu — a realtime voxel raytracing framework in JAX.
 
 A from-scratch JAX/XLA/Pallas rebuild of the capabilities of the CUDA/SDL2
 reference engine JoshuaLim007/VoxelEngine: two-level brickmap acceleration
@@ -7,11 +7,11 @@ per-brick tight AABBs), Amanatides-Woo DDA ray traversal, procedural
 Perlin-fBm terrain generation, fused hit shading, checkerboard rendering,
 debug views, a batch ray-query API and an interactive fly-camera app.
 
-Architecture is TPU-first: world state is a handful of flat device arrays
-(no pointer graphs), traversal is a mask-predicated vectorized state machine
-(lane predication instead of warp divergence), the brickmap build is pure
-XLA reductions (no host threads), and scale-out is pixel-space sharding via
-``shard_map`` over a ``jax.sharding.Mesh``.
+World state is a handful of flat device arrays (no pointer graphs); the
+traversal is one DDA state machine, run per block of rays by a GPU kernel
+and as a mask-predicated batch program by XLA elsewhere; the brickmap build
+is pure XLA reductions (no host threads); and scale-out is pixel-space
+sharding via ``shard_map`` over a ``jax.sharding.Mesh``.
 """
 
 from voxelengine_tpu.config import Environment, RenderConfig

@@ -87,34 +87,7 @@ class RenderConfig:
     reflectivity: float = 0.35
     crosshair: bool = True  # Renderer.cu:260-268
     debug_pos_mod: float = 128.0  # Renderer.cu:217-222
-    # straggler compaction (ops.trace.trace_brickmap_staged): big win on
-    # wide frames where p99 ray path length >> mean.  stage_iters should
-    # exceed the scene's p99 event count for bit-identical results.
-    staged_trace: bool = True
-    stage_iters: int = 256
-    tail_frac: int = 16
-    # optional explicit compaction schedule ((iters, frac), ...) overriding
-    # the (stage_iters, tail_frac)-derived default; must be sized beyond the
-    # scene's survivor percentiles (bench.py verifies 0-diff per run)
-    stage_schedule: tuple = None
-    # Pallas HBM-line-table traversal (ops.pallas_bigtrace), used when a
-    # LineTable is passed to render_frame: ray-tile size, VMEM cache slots,
-    # and 32x32-pixel-block ray ordering for cache coherence
-    trace_tile: int = 1024
-    trace_slots: int = 8
-    # fetch scheduler: 0 = S-way unrolled fetch; K>0 = per-group slot
-    # shortlist (K voted candidates + rotating slot, fused 1-iter descend)
-    trace_shortlist: int = 0
-    # macro occupancy skip levels (L1/L2/L3).  Terrain-bound camera rays
-    # never fire them (round-3 phase-mix measurement: 0.0% of lane
-    # iterations on the 8k bench scene) and the span machinery costs ~4%
-    # of the iteration — a probe-informed renderer turns this off when a
-    # probe trace reports zero macro skips (traversal is then
-    # bit-identical; bench.py verifies per run either way)
-    trace_use_macro: bool = True
-    tile_order: bool = False
-    # Pallas straggler compaction (trace_brickmap_hbm_staged): first-pass
-    # step budget (0 = single launch at max_steps) and tail-buffer divisor.
-    # Never truncates: overflow triggers a full rescue pass (lax.cond).
-    trace_stage_steps: int = 0
-    trace_tail_frac: int = 8
+    # order primary rays as ~32x32-pixel blocks (render.frame.primary_rays)
+    # instead of raster rows, so a traversal block's rays are screen
+    # neighbours (faster on the GPU: PERF.md); results are identical
+    tile_order: bool = True

@@ -1,6 +1,6 @@
 """Bit-packed voxel occupancy storage.
 
-TPU-native equivalent of the reference's ``BitArray``/``BitRef``/``VoxelBuffer``
+JAX equivalent of the reference's ``BitArray``/``BitRef``/``VoxelBuffer``
 (``VolumeRaytracer.cuh:204-233``, ``VolumeRaytracer.cu:15-93``): one bit per
 voxel packed into ``uint32`` words, with the bit index given by a
 :class:`~voxelengine_tpu.core.layout.Layout` swizzle.
@@ -140,8 +140,7 @@ def _morton_perm(n: int) -> np.ndarray:
 
 def layout_order_bits(dense: jax.Array, layout: Layout) -> jax.Array:
     """Flatten a dense [Z, Y, X] bool array into layout bit order using pure
-    reshape/transpose (no scatter — XLA TPU scatters run on a slow scalar
-    path).  Tiled modes require dims divisible by 8, like the reference."""
+    reshape/transpose (no scatter).  Tiled modes require dims divisible by 8, like the reference."""
     zdim, ydim, xdim = dense.shape
     if layout is Layout.LINEAR:
         return dense.reshape(-1)

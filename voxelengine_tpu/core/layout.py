@@ -1,6 +1,6 @@
 """Memory-layout / swizzle functions for voxel sample indices.
 
-TPU-native equivalent of the reference's compile-time sample-index layouts
+JAX equivalent of the reference's compile-time sample-index layouts
 (``VolumeRaytracer.cuh:25-171``): a runtime-selected layout enum instead of
 ``#define SAMPLE_MODE_*``.  Three layouts:
 

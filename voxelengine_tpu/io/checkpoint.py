@@ -3,15 +3,14 @@
 The reference has no persistence — the 3D world is regenerated from a
 hard-coded seed every run (``VoxelWorldBuilder.cu:6``), and the 2D prototype
 loads a text fixture (``DDATestCpp.cpp:302-314``).  Determinism-as-checkpoint
-works, but a 32-octave fBm over 8k x 512 x 8k is minutes of VPU time, so the
-TPU build adds explicit save/load of the three flat arrays (npz with
-metadata).  ``generate_or_load`` is the cached-worldgen entry the bench and
-apps use.
+works, but a 32-octave fBm over 8k x 512 x 8k is a long build, so the engine
+adds explicit save/load of the three flat arrays (npz with metadata).
+``generate_or_load`` is the cached-worldgen entry the bench and apps use;
+:data:`WORLD_CACHE` is its directory, fixed at the repository root.
 """
 
 from __future__ import annotations
 
-import json
 import os
 import sys
 
@@ -22,6 +21,13 @@ from voxelengine_tpu.core.brickmap import BrickMap
 from voxelengine_tpu.core.layout import Layout
 
 FORMAT_VERSION = 1
+
+#: where the bench and the apps cache built worlds: ``<repo>/.world_cache``,
+#: whatever the working directory
+WORLD_CACHE = os.path.join(
+    os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))),
+    ".world_cache",
+)
 
 
 def _world_paths(path: str):
@@ -78,40 +84,6 @@ def load_world(path: str) -> BrickMap:
     )
 
 
-def load_world_host_bricks(path: str):
-    """Load a world's small tables onto device but leave the multi-GB
-    brick words on the HOST as a read-only memmap.
-
-    Returns ``(bm, bricks_host)`` where ``bm.bricks`` is ``None``
-    (``words_per_brick`` derives from ``factor``, so shape queries stay
-    valid; any path that needs device brick words — the XLA traversal,
-    edits, ``brick_lines_view`` — raises a clear error instead of
-    silently tracing a placeholder) and ``bricks_host`` is
-    ``uint32[N, wpb]``.  The
-    16k-class flow: feed ``bricks_host`` to
-    :func:`...ops.pallas_bigtrace.host_brick_lines` and upload the line
-    form only — raw bricks and brick lines cannot both fit beside trace
-    temps on a 16 GB chip."""
-    path, sidecar = _world_paths(path)
-    z = np.load(path)
-    assert int(z["version"]) == FORMAT_VERSION, "unknown world format"
-    bricks = (
-        z["bricks"] if "bricks" in z.files
-        else np.load(sidecar, mmap_mode="r")
-    )
-    bm = BrickMap(
-        meta=jnp.asarray(z["meta"]),
-        brick_idx=jnp.asarray(z["brick_idx"]),
-        bricks=None,  # host-resident: see docstring
-        grid_dims=tuple(int(v) for v in z["grid_dims"]),
-        factor=int(z["factor"]),
-        coarse_layout=Layout(int(z["coarse_layout"])),
-        brick_layout=Layout(int(z["brick_layout"])),
-        dense_slots=bool(z["dense_slots"]),
-    )
-    return bm, bricks
-
-
 def generate_or_load(
     cache_dir: str,
     key: str,
@@ -134,37 +106,6 @@ def generate_or_load(
     bm = generate_fn()
     save_world(path, bm)
     return bm
-
-
-def memo_json(cache_dir: str, key: str, fn):
-    """Tiny JSON-value disk memo: return the cached value for ``key`` if
-    ``{cache_dir}/{key}.memo.json`` exists, else compute ``fn()``, persist
-    it, and return it.
-
-    Used for expensive-to-recompute *hints* whose staleness is harmless —
-    e.g. the probe-informed macro decision (``render.frame.probe_use_macro``),
-    whose diagnostic kernel costs a full Mosaic compile per process while
-    the decision itself is a scene-keyed boolean that cannot affect
-    correctness (traversal is bit-identical either way; the bench's
-    exactness gate re-checks every run regardless).  Callers must fold
-    every decision input into ``key``."""
-    os.makedirs(cache_dir, exist_ok=True)
-    path = os.path.join(cache_dir, key + ".memo.json")
-    if os.path.exists(path):
-        try:
-            with open(path) as f:
-                return json.load(f)["value"]
-        except Exception as e:  # truncated/corrupt: recompute
-            print(f"memo {path} unreadable ({type(e).__name__}: {e}); "
-                  "recomputing", file=sys.stderr, flush=True)
-    value = fn()
-    if hasattr(value, "item"):  # np/jnp scalar -> python scalar
-        value = value.item()
-    tmp = path + ".tmp"
-    with open(tmp, "w") as f:
-        json.dump({"key": key, "value": value}, f)
-    os.replace(tmp, path)
-    return value
 
 
 def _bm_meta(bm: BrickMap) -> dict:
@@ -212,74 +153,3 @@ def load_world_orbax(path: str) -> BrickMap:
         brick_layout=Layout(int(m["brick_layout"])),
         dense_slots=bool(m["dense_slots"]),
     )
-
-
-# bump whenever the macro table LAYOUT changes (bit grouping, word
-# packing): 3 = word budgets 32+4 (round 3; 2 was 8+2)
-LINE_TABLE_LAYOUT_VERSION = 3
-
-
-def save_line_table(path: str, lt) -> None:
-    """Serialize a :class:`...ops.pallas_bigtrace.LineTable`'s small side
-    tables (region lines + macro levels; the brick lines are a zero-copy
-    view of the brickmap and are not duplicated here)."""
-    np.savez_compressed(  # atomic: never leave a truncated cache behind
-        path + ".tmp.npz",
-        version=FORMAT_VERSION,
-        layout_version=LINE_TABLE_LAYOUT_VERSION,
-        region_lines=np.asarray(lt.region_lines),
-        macro=np.asarray(lt.macro),
-        macro2=np.asarray(lt.macro2),
-        num_regions=lt.num_regions,
-        region_dims=np.asarray(lt.region_dims),
-    )
-    os.replace(path + ".tmp.npz", path)
-
-
-def load_line_table(path: str):
-    from voxelengine_tpu.ops.pallas_bigtrace import (
-        MACRO2_WORDS,
-        MACRO3_WORDS,
-        LineTable,
-    )
-
-    z = np.load(path)
-    assert int(z["version"]) == FORMAT_VERSION, "unknown line-table format"
-    if int(z.get("layout_version", 1)) != LINE_TABLE_LAYOUT_VERSION:
-        # macro bit layout changed since this cache was written: the words
-        # would be silently misinterpreted — force a rebuild
-        raise ValueError("stale line-table layout")
-    macro2 = np.asarray(z["macro2"])
-    want = MACRO2_WORDS + MACRO3_WORDS
-    if macro2.shape[0] < want:
-        # table cached before a macro level existed: pad all-occupied
-        # (exactly disables the extra level; rebuilding recovers it)
-        macro2 = np.concatenate(
-            [macro2, np.full(want - macro2.shape[0], -1, np.int32)]
-        )
-    return LineTable(
-        region_lines=jnp.asarray(z["region_lines"]),
-        macro=jnp.asarray(z["macro"]),
-        macro2=jnp.asarray(macro2),
-        num_regions=int(z["num_regions"]),
-        region_dims=tuple(int(v) for v in z["region_dims"]),
-    )
-
-
-def line_table_or_build(cache_dir: str, key: str, bm: BrickMap):
-    """Cached :func:`...ops.pallas_bigtrace.make_line_table`: loading the
-    ~8 MB side tables beats rebuilding them (cold-start item — the round-2
-    bench paid 12.5 s per process here)."""
-    from voxelengine_tpu.ops.pallas_bigtrace import make_line_table
-
-    os.makedirs(cache_dir, exist_ok=True)
-    path = os.path.join(cache_dir, key + ".lt.npz")
-    if os.path.exists(path):
-        try:
-            return load_line_table(path)
-        except Exception:
-            pass  # stale layout / truncated file: rebuild below
-    lt = make_line_table(bm)
-    lt.region_lines.block_until_ready()
-    save_line_table(path, lt)
-    return lt

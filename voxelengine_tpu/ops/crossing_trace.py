@@ -1,27 +1,22 @@
-"""Single-ray crossing-trace diagnostic for the flagship HBM kernel.
+"""Single-ray crossing-trace diagnostic.
 
 Role-equivalent of the reference's ``RECORD_INTERSECTED_POINTS`` build
 (``DDATestCpp/DDATestCpp.cpp:15-25,129-131``): dump every DDA event of ONE
 selected ray — phase, coarse/fine cell, crossing times, step counts — so a
-single disagreeing ray can be debugged event-by-event instead of from
-aggregate phase counters (round-3 VERDICT "what's missing" #3).
+single disagreeing ray can be debugged event by event instead of from
+aggregate counts.
 
-Design: rather than threading a per-iteration store through the Mosaic
-kernel (scalar dynamic stores serialize the vector pipeline — the measured
-reason the per-iteration-vote fetch died, NOTES_ROUND4.md item 1), this
-harness runs the kernel's OWN hot-loop body — :func:`_trace_inner`, the
-exact function ``pl.pallas_call`` traces, in its ``diag=True`` build — under
-``lax.scan`` on a 1-ray working set, with an ideal always-served fetch that
-reads the same line tables the kernel DMAs.  Every iteration's full state is
-scanned out.  Because the line cache is results-transparent (stalls change
-iteration counts, never results — enforced by the per-bench-run exactness
-gate), the dumped event sequence is the production kernel's event sequence;
-the only difference is the absence of ``stall`` iterations.
+The dump runs the traversal's own step function
+(:func:`voxelengine_tpu.ops.trace._step`, the body of the XLA loop, which
+the GPU kernel reproduces per block) under ``lax.scan`` on a one-ray state
+and keeps every iteration's state.  So the dumped event sequence is the
+traversal's event sequence, and its final record equals what
+:func:`voxelengine_tpu.ops.traverse.trace_rays` returns for that ray.
 
-Typical use: ``trace_brickmap_hbm`` and the XLA path disagree on ray i ->
-``dump = trace_ray_crossings(bm, lt, origins[i], rays[i])`` ->
-``print(format_crossings(dump))`` and compare against the scalar oracle
-(whose ``record=`` hook logs the same per-level cell/point sequence).
+Typical use: two traversals (or a traversal and the scalar oracle) disagree
+on ray i -> ``dump = trace_ray_crossings(bm, origins[i], rays[i])`` ->
+``print(format_crossings(dump))`` and compare against the oracle (whose
+``record=`` hook logs the same per-level cell/point sequence).
 """
 
 from __future__ import annotations
@@ -32,207 +27,94 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from voxelengine_tpu.config import FLT_EPS_DDA, MAX_STEPS
+from voxelengine_tpu.config import MAX_STEPS
 from voxelengine_tpu.core.brickmap import BrickMap
-from voxelengine_tpu.ops.aabb import ray_aabb
-from voxelengine_tpu.ops.pallas_bigtrace import (
-    BIG,
-    MACRO2_WORDS,
-    MACRO3_WORDS,
-    NOLINE,
-    LineTable,
-    _trace_inner,
-    brick_lines_view,
-)
-from voxelengine_tpu.ops.trace import _edge_pad, _normalize
+from voxelengine_tpu.ops.trace import _finalize, _init_state, _step
 
 F32 = jnp.float32
-I32 = jnp.int32
-
-#: carry-tuple field indices of :func:`_trace_inner` (kept in one place so a
-#: kernel state-layout change breaks THIS table, not silent mis-extraction;
-#: the parity test cross-checks every extracted field against the oracle)
-_FIELDS = dict(
-    act=0, fine=1, pend=2, hit=3, imm=4, hit_imm=5, steps=6,
-    ccx=7, ccy=8, ccz=9, ctx=10, cty=11, ctz=12,
-    fcx=14, fcy=15, fcz=16, ftx=17, fty=18, ftz=19,
-    fpx=23, fpy=24, fpz=25, fsteps=29,
-    pox=36, poy=37, poz=38, nox=39, noy=40, noz=41,
-    bslot=43, want=44,
-)
-_PHASES = ("stall", "mskip", "cadv", "pend_to", "desc", "fstep",
-           "step2", "asc", "xrun", "adjstall")
 
 
 def trace_ray_crossings(
     bm: BrickMap,
-    lt: LineTable,
     origin,
     ray,
     max_steps: int = MAX_STEPS,
-    use_macro: bool = True,
-    double_step: bool = True,
     max_iters: Optional[int] = None,
 ):
-    """Trace ONE ray through the flagship kernel's event loop, dumping
-    every iteration.
+    """Trace ONE ray through the traversal's event loop, dumping every
+    iteration.
 
     Returns a dict of numpy arrays (one row per executed iteration, trimmed
-    at ray retirement): ``phase`` (fired-phase names per iteration),
-    ``coarse_cell`` [T,3], ``fine_cell`` [T,3], ``in_fine``/``pending``
-    [T], ``t_coarse``/``t_fine`` [T,3] (next-crossing candidates per axis),
+    at ray retirement): ``phase`` (tuple of event names per iteration, from
+    ``cadv`` coarse advance, ``desc`` descend into a chunk, ``fstep`` fine
+    step, ``asc`` ascend out of a chunk, ``hit``, ``miss``, ``budget``),
+    ``coarse_cell``/``fine_cell`` [T,3], ``in_fine`` [T],
+    ``t_coarse``/``t_fine`` [T,3] (next-crossing candidates per axis),
     ``point`` [T,3] (fine-level crossing position, chunk-local x factor),
-    ``steps``/``fsteps`` [T], ``want_line`` [T], plus the final result
-    under ``hit``/``position``/``normal``/``steps_total``.
-
-    Mirrors ``trace_brickmap_hbm``'s per-ray init exactly (world-AABB clip,
-    edge pads, DDA seeds — ``pallas_bigtrace.py:1559-1593``); results are
-    asserted identical by ``tests/test_crossing_trace.py``.
+    ``steps``/``fsteps`` [T], plus the final result under ``hit``,
+    ``hit_immediate``, ``position``, ``normal`` and ``steps_total``.
     """
-    gx, gy, gz = bm.grid_dims
-    f = bm.factor
-    NR = lt.num_regions
-    gdims = jnp.asarray([gx, gy, gz], I32)
-
-    origin = jnp.asarray(origin, F32).reshape(3)
-    d1 = _normalize(jnp.asarray(ray, F32).reshape(1, 3))
-
-    start_c = (origin / F32(f)).reshape(1, 3)
-    inside = jnp.all((start_c >= 0.0) & (start_c < gdims.astype(F32)), axis=-1)
-    eps = jnp.float32(FLT_EPS_DDA)
-    whit, _, wpt, wnrm = ray_aabb(
-        start_c, d1, jnp.full((3,), eps), gdims.astype(F32) - eps
+    st0 = _init_state(
+        bm,
+        jnp.asarray(origin, F32).reshape(1, 3),
+        jnp.asarray(ray, F32).reshape(1, 3),
     )
-    start_c = jnp.where(inside[:, None], start_c, jnp.where(whit[:, None], wpt, start_c))
-    start_normal = jnp.where(inside[:, None], 0.0, wnrm)
-    active0 = (inside | whit).astype(I32)
-    pad = _edge_pad(start_c.astype(I32), gdims, d1)
-
-    def b(v):  # one scalar -> the (1, 128) replicated working set
-        return jnp.broadcast_to(jnp.asarray(v).reshape(1, 1), (1, 128))
-
-    sx, sy, sz = b(start_c[0, 0]), b(start_c[0, 1]), b(start_c[0, 2])
-    dx, dy, dz = b(d1[0, 0]), b(d1[0, 1]), b(d1[0, 2])
-    padx, pady, padz = b(pad[0, 0]), b(pad[0, 1]), b(pad[0, 2])
-
-    stx = jnp.where(dx > 0.0, 1, -1)
-    sty = jnp.where(dy > 0.0, 1, -1)
-    stz = jnp.where(dz > 0.0, 1, -1)
-    tdx = jnp.where(dx != 0.0, jnp.abs(1.0 / dx), BIG)
-    tdy = jnp.where(dy != 0.0, jnp.abs(1.0 / dy), BIG)
-    tdz = jnp.where(dz != 0.0, jnp.abs(1.0 / dz), BIG)
-    ccx0, ccy0, ccz0 = sx.astype(I32), sy.astype(I32), sz.astype(I32)
-    ctx0 = jnp.where(dx != 0.0, ((ccx0 + (stx > 0)).astype(F32) - sx) / dx, BIG)
-    cty0 = jnp.where(dy != 0.0, ((ccy0 + (sty > 0)).astype(F32) - sy) / dy, BIG)
-    ctz0 = jnp.where(dz != 0.0, ((ccz0 + (stz > 0)).astype(F32) - sz) / dz, BIG)
-    eps32 = 1.1920929e-07
-    ivx = 1.0 / jnp.where(dx == 0.0, eps32, dx)
-    ivy = 1.0 / jnp.where(dy == 0.0, eps32, dy)
-    ivz = 1.0 / jnp.where(dz == 0.0, eps32, dz)
-
-    macro = lt.macro
-    macro_row0 = jnp.broadcast_to(macro[0:1, :], (8, 128))
-    macro2_words = tuple(lt.macro2[k] for k in range(MACRO2_WORDS + MACRO3_WORDS))
-    env = (sx, sy, sz, dx, dy, dz,
-           stx, sty, stz, tdx, tdy, tdz, ivx, ivy, ivz,
-           padx, pady, padz, macro, macro_row0, macro2_words)
-
-    regions = lt.region_lines
-    blines = lt.brick_lines if lt.brick_lines is not None else brick_lines_view(bm)
-    nbl = blines.shape[0] // 8
-
-    def fetch(row, lane, want):
-        # ideal cache: every wanted line is resident (same words the kernel
-        # DMAs, gathered straight from the tables); non-fused like
-        # _make_fetch_full, so the to_pend -> descend sequence matches
-        served = want != NOLINE
-        is_region = served & (want < NR)
-        is_brick = served & (want >= NR)
-        ridx = jnp.where(is_region, jnp.clip(want, 0, NR - 1) * 8 + row, 0)
-        bidx = jnp.where(is_brick, jnp.clip(want - NR, 0, nbl - 1) * 8 + row, 0)
-        word = jnp.where(is_region, regions[ridx, lane], blines[bidx, lane])
-        return jnp.where(served, word, 0), None, served
-
-    zero = jnp.zeros((1, 128), F32)
-    zeroi = jnp.zeros((1, 128), I32)
-    init = (jnp.broadcast_to(active0.astype(I32).reshape(1, 1), (1, 128)),
-            zeroi, zeroi, zeroi, zeroi, zeroi, zeroi,
-            ccx0, ccy0, ccz0, ctx0, cty0, ctz0, zero,
-            zeroi, zeroi, zeroi, zero, zero, zero,
-            zero, zero, zero, zero, zero, zero,
-            zeroi, zeroi, zeroi, zeroi,
-            zero, zero, zero, zero, zero, zero,
-            zero, zero, zero, zero, zero, zero,
-            zeroi, zeroi, jnp.full((1, 128), NOLINE, I32),
-            jnp.full((1, 128), -1, I32), zeroi) + (zeroi,) * 10
-
     if max_iters is None:
-        # the ideal fetch never stalls: to_pend(+0) -> descend(+0) ->
-        # ascend(+1) bounds events at 3 per charged step (pallas_bigtrace
-        # iter_limit comment), so this cap loses nothing
-        max_iters = 3 * max_steps + 64
+        max_iters = 2 * max_steps + 8  # trace_brickmap's own iteration cap
 
-    def step(carry, _):
-        new = _trace_inner(
-            env, fetch, carry,
-            grid_dims=(gx, gy, gz), region_dims=lt.region_dims,
-            num_regions=NR, factor=f, wpb=bm.words_per_brick,
-            max_steps=max_steps, use_macro=use_macro,
-            brick_layout=bm.brick_layout, double_step=double_step,
-            diag=True,
-        )
-        y = tuple(new[i][0, 0] for i in _FIELDS.values())
-        y = y + tuple(new[47 + k][0, 0] for k in range(len(_PHASES)))
-        return new, y
+    def step(st, _):
+        new = _step(bm, st, max_steps)
+        return new, new
 
-    final, ys = jax.lax.scan(step, init, None, length=max_iters)
+    final, ys = jax.jit(
+        lambda st: jax.lax.scan(step, st, None, length=max_iters)
+    )(st0)
+    ys = jax.tree.map(lambda a: np.asarray(a)[:, 0] if a.ndim > 1 else a, ys)
+    prev_active = np.concatenate([np.asarray(st0.active), ys.active[:-1]])
+    prev_fine = np.concatenate([np.asarray(st0.in_fine), ys.in_fine[:-1]])
+    prev_steps = np.concatenate([np.asarray(st0.steps), ys.steps[:-1]])
+    prev_hit = np.concatenate([np.asarray(st0.hit), ys.hit[:-1]])
 
-    cols = {k: np.asarray(v) for k, v in zip(list(_FIELDS) + list(_PHASES), ys)}
-    # iterations executed, INCLUDING the retiring one (the row where act
-    # drops to 0 carries the hit/miss event itself)
-    if not bool(active0[0]):
-        ran = 0
-    elif (cols["act"] == 0).any():
-        ran = int(np.argmin(cols["act"])) + 1
-    else:
-        ran = max_iters
+    # iterations executed, INCLUDING the retiring one (the row where the
+    # ray goes inactive carries the hit/miss event itself)
+    ran = int(prev_active.sum())
+    phase = []
+    for k in range(ran):
+        stepped = ys.steps[k] > prev_steps[k]
+        ev = []
+        if not prev_fine[k]:
+            if ys.in_fine[k]:
+                ev.append("desc")
+            elif stepped:
+                ev.append("cadv")
+        elif ys.in_fine[k]:
+            if stepped:
+                ev.append("fstep")
+        elif stepped:
+            ev.append("asc")
+        if ys.hit[k] and not prev_hit[k]:
+            ev.append("hit")
+        elif not ys.active[k]:
+            ev.append("budget" if ys.steps[k] >= max_steps else "miss")
+        phase.append(tuple(ev))
 
-    def tr(k):
-        return cols[k][:ran]
-
-    counts = np.stack([cols[p][:ran] for p in _PHASES], axis=1)
-    fired = np.diff(np.concatenate([np.zeros((1, len(_PHASES)), counts.dtype),
-                                    counts]), axis=0)
-    phase = [tuple(p for p, c in zip(_PHASES, row) if c) for row in fired]
-
-    hit = bool(cols["hit"][ran - 1]) if ran else False
-    hit_imm = bool(cols["hit_imm"][ran - 1]) if ran else False
-    pos = (np.array([cols["pox"][ran - 1], cols["poy"][ran - 1],
-                     cols["poz"][ran - 1]], np.float32) if ran else np.zeros(3, np.float32))
-    nrm = (np.array([cols["nox"][ran - 1], cols["noy"][ran - 1],
-                     cols["noz"][ran - 1]], np.float32) if ran else np.zeros(3, np.float32))
-    if hit_imm:  # degenerate 0-step hit: entry point + world-entry normal
-        pos = np.asarray(start_c[0]) * np.float32(f)
-        nrm = np.asarray(start_normal[0])
+    out = jax.tree.map(np.asarray, _finalize(final, bm.factor))
     return dict(
         iterations=ran,
         phase=phase,
-        coarse_cell=np.stack([tr("ccx"), tr("ccy"), tr("ccz")], axis=1),
-        fine_cell=np.stack([tr("fcx"), tr("fcy"), tr("fcz")], axis=1),
-        in_fine=tr("fine").astype(bool),
-        pending=tr("pend").astype(bool),
-        t_coarse=np.stack([tr("ctx"), tr("cty"), tr("ctz")], axis=1),
-        t_fine=np.stack([tr("ftx"), tr("fty"), tr("ftz")], axis=1),
-        point=np.stack([tr("fpx"), tr("fpy"), tr("fpz")], axis=1),
-        steps=tr("steps"),
-        fsteps=tr("fsteps"),
-        want_line=tr("want"),
-        brick_slot=tr("bslot"),
-        hit=hit or hit_imm,
-        hit_immediate=hit_imm,
-        position=pos,
-        normal=nrm,
-        steps_total=int(cols["steps"][ran - 1]) if ran else 0,
+        coarse_cell=ys.ccell[:ran],
+        fine_cell=ys.fcell[:ran],
+        in_fine=ys.in_fine[:ran],
+        t_coarse=ys.ctmax[:ran],
+        t_fine=ys.ftmax[:ran],
+        point=ys.fpos[:ran],
+        steps=ys.steps[:ran],
+        fsteps=ys.fsteps[:ran],
+        hit=bool(out.hit[0]),
+        hit_immediate=bool(np.asarray(final.hit_imm)[0]),
+        position=out.position[0],
+        normal=out.normal[0],
+        steps_total=int(out.steps[0]),
     )
 
 

@@ -204,9 +204,9 @@ def fade(t):
 
 # grad() switch table (cuda_noise.cuh:173-195).  Entries 0xC-0xF are the
 # reference's quirky duplicates: C:(x+y) D:(-y+z) E:(y-x) F:(-y-z) — i.e.
-# they alias entries 0, 9, 1 and 11.  Implemented as pure VPU arithmetic
-# (sign bits + axis-pair select) rather than a table gather: XLA TPU lowers
-# small-table gathers with huge index vectors to a very slow scalar path.
+# they alias entries 0, 9, 1 and 11.  Implemented as pure elementwise
+# arithmetic (sign bits + axis-pair select) rather than a table gather, so
+# it fuses into the surrounding noise evaluation.
 def grad(h, x, y, z):
     """Gradient dot product keyed by ``h & 0xF`` (``cuda_noise.cuh:173-195``)."""
     i = (jnp.asarray(h).astype(jnp.uint32) & 0xF).astype(jnp.int32)

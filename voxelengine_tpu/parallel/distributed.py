@@ -3,7 +3,7 @@
 Beyond the reference's single-GPU design (and beyond the replicated-world
 pixel sharding in :mod:`voxelengine_tpu.parallel.sharded`): the brickmap is
 partitioned into coarse-z slabs, one per device, so worlds larger than a
-single chip's HBM can be traced.  Rays *migrate* between devices:
+single device's memory can be traced.  Rays *migrate* between devices:
 
 1. every device holds a full-size ray-state buffer but *owns* only the
    rays whose current coarse cell lies in its slab (ownership is exclusive
@@ -13,34 +13,29 @@ single chip's HBM can be traced.  Rays *migrate* between devices:
    ``ops.trace._run_loop(slab=...)``);
 3. paused rays are handed to the adjacent slab **point-to-point**: two
    neighbor ``ppermute``s (one +z, one -z) carry the state and a migration
-   mask — single-hop ICI transfers, no all-reduce on the round path;
+   mask — single-hop transfers, no all-reduce on the round path;
 4. after all rounds, one final masked ``psum`` assembles the results from
    each ray's last owner.
 
 A ray's slab sequence is monotonic in z (fixed direction sign), so it
-enters each slab at most once and ``n_devices`` rounds suffice.
-Collectives ride the mesh (ICI on real hardware); the world never does.
+enters each slab at most once and ``n_devices`` rounds suffice.  Each
+round's per-slab walk is the platform's traversal loop
+(:func:`voxelengine_tpu.ops.traverse.advance`).  Collectives ride the mesh;
+the world never does.
 """
 
 from __future__ import annotations
 
-import dataclasses
 import functools
-from typing import Tuple
 
 import jax
 import jax.numpy as jnp
-import numpy as np
 from jax.sharding import Mesh, PartitionSpec as P
 
 from voxelengine_tpu.config import MAX_STEPS
 from voxelengine_tpu.core.brickmap import BrickMap
-from voxelengine_tpu.ops.trace import (
-    TraceOut,
-    _finalize,
-    _init_state,
-    _run_loop,
-)
+from voxelengine_tpu.ops.trace import TraceOut, _finalize, _init_state
+from voxelengine_tpu.ops.traverse import advance
 
 F32 = jnp.float32
 I32 = jnp.int32
@@ -112,9 +107,9 @@ def _trace_zsharded(
 
         for _ in range(n_dev):
             mine = st.active & owned
-            st_out = _run_loop(
+            st_out = advance(
                 bm_local, st._replace(active=mine), max_steps,
-                2 * max_steps + 8, slab=(my * slab_gz, gz),
+                2 * max_steps + 8, z0=my * slab_gz, full_gz=gz,
             )
             # paused rays (state intact, still in-grid, outside my slab);
             # non-mine lanes pass through _run_loop untouched
@@ -196,25 +191,14 @@ def render_frame_zsharded(
     frame_number,
     cfg,
     mesh: Mesh,
-    zw=None,
 ) -> jax.Array:
     """``render_frame`` over a z-slab-sharded world: the distributed-memory
     frame entry (the world is partitioned across the mesh; only ray state
-    crosses ICI).  Exact :func:`voxelengine_tpu.render.frame.render_frame`
+    crosses the interconnect).  Exact :func:`voxelengine_tpu.render.frame.render_frame`
     semantics including secondary-trace shading: shadow and AO rays are
     just more ray batches, routed through the same sharded tracer as the
     primaries (each secondary pass is one more replicated walk / migration
     round set — still no world data on the wire).
-
-    ``zw``: a :class:`ZShardedHBM` world — trace through the flagship HBM
-    Pallas kernel via the replicated-walk path instead of the XLA
-    migration loop (``bm`` is then only used as a donation-free pytree
-    placeholder and may be the same brickmap the world was sharded from).
-    Frames are identical up to the documented steps delta, which only the
-    steps-debug view renders (and, for budget-truncated secondary rays,
-    the replicated walk's per-slab step budget — hits those rays reach
-    behind cheap foreign space contribute ~= a miss through the AO
-    falloff).
     """
     from voxelengine_tpu.render.frame import (
         composite_frame,
@@ -222,16 +206,8 @@ def render_frame_zsharded(
         shade_traced,
     )
 
-    if zw is not None:
-        def trace(o, d, ms):
-            return trace_brickmap_hbm_zsharded(
-                zw, o, d, mesh, ms,
-                tile=cfg.trace_tile, num_slots=cfg.trace_slots,
-                shortlist=cfg.trace_shortlist, use_macro=cfg.trace_use_macro,
-            )
-    else:
-        def trace(o, d, ms):
-            return trace_brickmap_zsharded(bm, o, d, mesh, ms)
+    def trace(o, d, ms):
+        return trace_brickmap_zsharded(bm, o, d, mesh, ms)
 
     origins, dirs, px, py, py_r = primary_rays(cfg, origin, euler, frame_number)
     out = trace(origins, dirs, cfg.max_steps)
@@ -242,220 +218,3 @@ def render_frame_zsharded(
     )
     return composite_frame(framebuffer, color, write, cfg, frame_number)
 
-
-# ---------------------------------------------------------------------------
-# Flagship-kernel distributed tracing: replicated walk over masked slabs.
-#
-# The migration design above pays n_dev sequential rounds of neighbor
-# ppermutes because the XLA loop can pause a ray at a slab boundary with
-# state intact.  The Pallas kernel cannot cheaply spill its tile state, but
-# it does not need to: the resume-based traversal's COARSE CELL SEQUENCE is
-# occupancy-independent (descend/ascend never perturbs the saved coarse DDA
-# state — ops/trace.py module doc — and macro skips land charge-exact on
-# the same state).  So every device can walk the FULL grid against a copy
-# of the world in which foreign slabs read empty: it visits the same coarse
-# cells the single-device walk would, descends only into its own slab's
-# bricks, and therefore finds exactly the subset of hits that lie in its
-# slab.  One end-of-trace min-t reduce picks each ray's first hit — zero
-# mid-trace communication, and the per-device macro tables (foreign slabs
-# empty) make the foreign-space walk a handful of L2/L3 span skips.
-#
-# Exactness: hits, positions and normals equal the single-device kernel
-# (same walk, same floats).  Two documented deltas: (1) `steps` is the
-# hit-owning slab's charge — fine steps a ray spends GRAZING through a
-# foreign slab's chunk without hitting are charged there as empty-chunk
-# coarse steps; (2) the step budget applies to each slab's walk, so a ray
-# the single-device budget would truncate mid-frame can still reach a hit
-# behind cheap foreign space.  Scenes whose geometry a ray can only graze
-# in its hit slab (e.g. per-slab-confined geometry) match step-for-step;
-# tests cover both regimes.
-# ---------------------------------------------------------------------------
-
-
-@jax.tree_util.register_dataclass
-@dataclasses.dataclass(frozen=True)
-class ZShardedHBM:
-    """Stacked per-device slab worlds for the replicated-walk trace.
-
-    Leading axis = device; shard with ``P("shards")``.  Each row holds the
-    device's slab bricks (the O(world) memory — genuinely partitioned) and
-    a full-grid line table in which foreign slabs read empty (O(chunks/512)
-    region records per device)."""
-
-    brick_lines_stack: jax.Array  # i32[n, NBL*8, 128] (pre-relayouted: the
-    # kernel only reads the LINE form; storing raw bricks too would double
-    # the O(world) memory and re-pay the bricks->lines relayout as HLO
-    # temps inside every frame dispatch — the documented round-1 OOM mode)
-    region_lines_stack: jax.Array  # i32[n, NR*8, 128]
-    macro_stack: jax.Array  # i32[n, nv*8, 128]
-    macro2_stack: jax.Array  # i32[n, M2+M3]
-    grid_dims: Tuple[int, int, int] = dataclasses.field(metadata=dict(static=True))
-    factor: int = dataclasses.field(metadata=dict(static=True))
-    brick_layout: object = dataclasses.field(metadata=dict(static=True))
-    num_regions: int = dataclasses.field(metadata=dict(static=True))
-    region_dims: Tuple[int, int, int] = dataclasses.field(metadata=dict(static=True))
-
-
-def make_zsharded_hbm(bm: BrickMap, n: int) -> ZShardedHBM:
-    """Build the per-device masked-slab worlds + line tables (host-side,
-    one-time).  Requires LINEAR coarse layout and ``grid_dims[2] % n == 0``
-    (same contract as :func:`shard_world_z`); works for both dense-slot and
-    compact brickmaps (per-slab bricks are re-compacted to local slots)."""
-    from voxelengine_tpu.core.brickmap import META_OCC_BIT
-    from voxelengine_tpu.core.layout import Layout
-    from voxelengine_tpu.ops.pallas_bigtrace import (
-        host_brick_lines,
-        make_line_table,
-    )
-
-    assert bm.coarse_layout is Layout.LINEAR, "z-sharding requires LINEAR coarse layout"
-    gx, gy, gz = bm.grid_dims
-    assert gz % n == 0, f"gz={gz} must divide across {n} devices"
-    per = gx * gy * (gz // n)
-
-    meta_np = np.asarray(bm.meta)
-    idx_np = np.asarray(bm.brick_idx)
-    occ_np = ((meta_np >> META_OCC_BIT) & 1) == 1
-
-    local_idx, local_slots = [], []
-    for k in range(n):
-        sl = slice(k * per, (k + 1) * per)
-        u = idx_np[sl]
-        sel = occ_np[sl] & (u >= 0)
-        uniq = np.unique(u[sel])
-        remap = np.full(int(idx_np.max()) + 2, -1, np.int32)
-        remap[uniq] = np.arange(uniq.size, dtype=np.int32)
-        li = np.full(per, -1, np.int32)
-        li[sel] = remap[u[sel]]
-        local_idx.append(li)
-        local_slots.append(uniq)
-    bmax = max(1, max(u.size for u in local_slots))
-
-    bricks_rows, lts = [], []
-    for k in range(n):
-        sl = slice(k * per, (k + 1) * per)
-        meta_k = np.zeros_like(meta_np)
-        meta_k[sl] = meta_np[sl]
-        idx_k = np.full_like(idx_np, -1)
-        idx_k[sl] = local_idx[k]
-        lb = bm.bricks[jnp.asarray(local_slots[k], jnp.int32)]
-        lb = jnp.concatenate(
-            [lb, jnp.zeros((bmax - lb.shape[0], bm.words_per_brick), lb.dtype)]
-        )
-        bricks_rows.append(lb)
-        lts.append(make_line_table(BrickMap(
-            meta=jnp.asarray(meta_k),
-            brick_idx=jnp.asarray(idx_k),
-            bricks=lb,
-            grid_dims=bm.grid_dims,
-            factor=bm.factor,
-            coarse_layout=bm.coarse_layout,
-            brick_layout=bm.brick_layout,
-            dense_slots=False,
-        )))
-    return ZShardedHBM(
-        brick_lines_stack=jnp.stack(
-            [jnp.asarray(host_brick_lines(np.asarray(b))) for b in bricks_rows]
-        ),
-        region_lines_stack=jnp.stack([t.region_lines for t in lts]),
-        macro_stack=jnp.stack([t.macro for t in lts]),
-        macro2_stack=jnp.stack([t.macro2 for t in lts]),
-        grid_dims=bm.grid_dims,
-        factor=bm.factor,
-        brick_layout=bm.brick_layout,
-        num_regions=lts[0].num_regions,
-        region_dims=lts[0].region_dims,
-    )
-
-
-@functools.partial(
-    jax.jit,
-    static_argnames=(
-        "mesh", "max_steps", "tile", "num_slots", "shortlist", "use_macro",
-    ),
-)
-def trace_brickmap_hbm_zsharded(
-    zw: ZShardedHBM,
-    origins,
-    rays,
-    mesh: Mesh,
-    max_steps: int = MAX_STEPS,
-    tile: int = 1024,
-    num_slots: int = 8,
-    shortlist: int = 0,
-    use_macro: bool = True,
-) -> TraceOut:
-    """Distributed-world trace through the flagship HBM Pallas kernel (see
-    the replicated-walk design note above).  ``mesh`` axis must be named
-    ``"shards"``; rays are replicated, the world stays sharded."""
-    from voxelengine_tpu.core.layout import Layout
-    from voxelengine_tpu.ops.pallas_bigtrace import LineTable, trace_brickmap_hbm
-
-    n_dev = mesh.devices.size
-    wpb = (zw.factor ** 3 + 31) // 32  # ceil: match BrickMap.words_per_brick
-    # pass rays through UN-normalized (the kernel normalizes internally;
-    # normalizing here too would shift directions by 1 ULP vs the
-    # single-device call).  The min-t combine only needs per-device
-    # consistency, and t's ordering is scale-invariant.
-    origins = jnp.asarray(origins, F32)
-    d = jnp.asarray(rays, F32)
-
-    def shard(blines, rlines, macro, macro2, o, d):
-        my = jax.lax.axis_index("shards")
-        bm_local = BrickMap(
-            meta=jnp.zeros((1,), I32),  # unused at trace time (lt carries it)
-            brick_idx=jnp.zeros((1,), I32),
-            bricks=jnp.zeros((1, wpb), jnp.uint32),  # lt carries the lines
-            grid_dims=zw.grid_dims,
-            factor=zw.factor,
-            coarse_layout=Layout.LINEAR,
-            brick_layout=zw.brick_layout,
-            dense_slots=False,
-        )
-        lt_local = LineTable(
-            region_lines=rlines[0], macro=macro[0], macro2=macro2[0],
-            num_regions=zw.num_regions, region_dims=zw.region_dims,
-            brick_lines=blines[0],
-        )
-        out = trace_brickmap_hbm(
-            bm_local, lt_local, o, d, max_steps, tile=tile,
-            num_slots=num_slots, shortlist=shortlist, use_macro=use_macro,
-        )
-        # first hit along the ray = min t across slabs (voxels live in
-        # exactly one slab).  Float-equal ties (corner grazes whose
-        # distinct per-slab hits round to the same f32 t) are broken in
-        # WALK order: the slab the ray's z traverses first wins — slab
-        # index for d.z >= 0, reversed for d.z < 0 (matches the order the
-        # single-device DDA would visit the candidate cells).
-        t = jnp.sum((out.position - o) * d, -1)
-        t = jnp.where(out.hit, t, jnp.float32(3.4e38))
-        tmin = jax.lax.pmin(t, "shards")
-        winner = out.hit & (t == tmin)
-        rank = jnp.where(d[:, 2] < 0.0, n_dev - 1 - my, my)
-        wslab = jnp.where(winner, rank, n_dev)
-        owner = winner & (jax.lax.pmin(wslab, "shards") == rank)
-
-        def pick(x):
-            m = owner.reshape((-1,) + (1,) * (x.ndim - 1))
-            if x.dtype == jnp.bool_:
-                return jax.lax.psum(jnp.where(m, x, False).astype(I32), "shards") > 0
-            return jax.lax.psum(jnp.where(m, x, jnp.zeros_like(x)), "shards")
-
-        hit = pick(out.hit)
-        pos = pick(out.position)
-        nrm = pick(out.normal)
-        # misses: no owner -> report the deepest per-slab charge (the
-        # documented approximation; hits use the owner's exact charge)
-        steps_hit = pick(out.steps)
-        steps_miss = jax.lax.pmax(out.steps, "shards")
-        steps = jnp.where(hit, steps_hit, steps_miss)
-        return TraceOut(hit=hit, position=pos, normal=nrm, steps=steps)
-
-    return jax.shard_map(
-        shard,
-        mesh=mesh,
-        in_specs=(P("shards"), P("shards"), P("shards"), P("shards"), P(), P()),
-        out_specs=P(),
-        check_vma=False,
-    )(zw.brick_lines_stack, zw.region_lines_stack, zw.macro_stack,
-      zw.macro2_stack, origins, d)

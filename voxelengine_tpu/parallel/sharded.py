@@ -2,10 +2,10 @@
 
 The reference engine is strictly single-GPU (no NCCL/MPI anywhere — see
 SURVEY.md P1-P6); its "communication backend" is cudaMemcpy + kernel
-launches.  The TPU-native scale-out story is embarrassingly parallel
-pixel-space sharding: each device traces its own pixel shard against a
-*replicated* brickmap, so the frame path never touches the interconnect;
-only diagnostics (step histograms) use a ``psum`` over ICI.
+launches.  The scale-out here is embarrassingly parallel pixel-space
+sharding: each device traces its own pixel shard against a *replicated*
+brickmap, so the frame path never touches the interconnect; only
+diagnostics (step histograms) use a ``psum``.
 
 Two shard layouts (both exact vs the single-device render):
 
@@ -13,10 +13,8 @@ Two shard layouts (both exact vs the single-device render):
   *i* owns rows ``[i*rows/n, (i+1)*rows/n)``; the framebuffer shards as a
   plain ``P('rows')`` raster image.
 - :func:`render_frame_cyclic` — pixel blocks dealt round-robin (block
-  ``j`` -> device ``j % N``), which fixes the row bands' sky-vs-terrain
-  load skew: measured max/mean imbalance 1.55 -> 1.05 at N=8, projected
-  8-chip 1080p frame 17.95 -> **14.18 ms** (BASELINE.md "Measured N-chip
-  frame projection").  The framebuffer lives block-cyclic on device;
+  ``j`` -> device ``j % N``), which evens out the row bands' sky-vs-terrain
+  load skew.  The framebuffer lives block-cyclic on device;
   :func:`cyclic_to_image` reassembles host-side at present time.
 
 A ray-batch variant (``raytrace_sharded``) shards the flat ray axis for the
@@ -35,7 +33,8 @@ from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
 from voxelengine_tpu.config import Environment, RenderConfig
 from voxelengine_tpu.core.brickmap import BrickMap
-from voxelengine_tpu.ops.trace import TraceOut, trace_brickmap
+from voxelengine_tpu.ops.trace import TraceOut
+from voxelengine_tpu.ops.traverse import trace_rays
 from voxelengine_tpu.render import camera as cam
 from voxelengine_tpu.render.frame import block_geometry, shade_pixels
 from voxelengine_tpu.config import Projection
@@ -92,7 +91,6 @@ def render_frame_sharded(
     frame_number,
     cfg: RenderConfig,
     mesh: Mesh,
-    lt=None,
     ortho_size=None,
 ) -> jax.Array:
     """Row-sharded frame render: ``render_frame`` semantics, N devices.
@@ -102,9 +100,8 @@ def render_frame_sharded(
 
     Each device renders its own contiguous block of pre-remap rows with
     the SAME machinery as the single-device path — tile-order ray
-    blocking, the flagship HBM line-table Pallas kernel when ``lt`` is
-    given, and the scatter-free pair-select composite (the round-2
-    44.7 -> 4.0 ms/frame win, :func:`...render.frame.composite_frame`).
+    blocking, the platform's traversal, and the scatter-free pair-select
+    composite (:func:`...render.frame.composite_frame`).
     The checkerboard remap ``y = 2y' + (x even) + (frame even)`` commutes
     with row blocks; the only seam is the even-frame ``+2`` crossing,
     covered by one halo ray row per device (zero communication).
@@ -137,7 +134,7 @@ def render_frame_sharded(
             a = a.transpose(0, 2, 1, 3, *range(4, 4 + len(rest)))
         return a.reshape(rows_local, W, *rest)
 
-    def tile(bm, lt, fb_block, origin, euler, env, frame_number, osz):
+    def tile(bm, fb_block, origin, euler, env, frame_number, osz):
         dev = jax.lax.axis_index("rows")
         row0 = dev * rows_local
         xg, yg = jnp.meshgrid(jnp.arange(W), jnp.arange(rows_local), indexing="xy")
@@ -161,8 +158,7 @@ def render_frame_sharded(
             origin, euler, frame_number, px, py_r, osz
         )
         color, write = shade_pixels(
-            bm, origins, dirs, px, py, py_r, origin, env, frame_number, cfg,
-            None, lt,
+            bm, origins, dirs, px, py, py_r, origin, env, frame_number, cfg
         )
         if not cb:
             h = unblock_local(color)
@@ -187,10 +183,10 @@ def render_frame_sharded(
     fb = jax.shard_map(
         tile,
         mesh=mesh,
-        in_specs=(P(), P(), P("rows"), P(), P(), P(), P(), P()),
+        in_specs=(P(), P("rows"), P(), P(), P(), P(), P()),
         out_specs=P("rows"),
         check_vma=False,
-    )(bm, lt, framebuffer, jnp.asarray(origin, F32), jnp.asarray(euler, F32),
+    )(bm, framebuffer, jnp.asarray(origin, F32), jnp.asarray(euler, F32),
       env, jnp.asarray(frame_number, jnp.int32), osz)
     return fb
 
@@ -242,7 +238,6 @@ def render_frame_cyclic(
     frame_number,
     cfg: RenderConfig,
     mesh: Mesh,
-    lt=None,
     ortho_size=None,
 ) -> jax.Array:
     """Block-cyclic sharded frame render: ``render_frame`` semantics over
@@ -250,12 +245,9 @@ def render_frame_cyclic(
     device ``j % N``).
 
     Contiguous row shards concentrate sky on some devices and horizon
-    terrain on others — measured max/mean load imbalance **1.55** at N=8
-    on the 8k bench scene vs **1.05** for this cyclic deal (projected
-    8-chip frame 17.95 -> 14.18 ms, `experiments/bench_shard_projection.py`).
-    Every device still traces coherent 32x30-pixel tiles, so intra-tile
-    cache adjacency — what the flagship kernel's line cache feeds on — is
-    intact; only the *assignment* of tiles to devices changes.
+    terrain on others; dealing blocks round-robin spreads both over every
+    device.  Every device still traces coherent 32x30-pixel tiles; only
+    the *assignment* of tiles to devices changes.
 
     The frame stays zero-communication: the checkerboard's even-frame
     ``+2`` remap needs each block's predecessor pre-remap row, recomputed
@@ -276,7 +268,7 @@ def render_frame_cyclic(
         cfg.ortho_size if ortho_size is None else ortho_size, F32
     )
 
-    def tile(bm, lt, fb_block, origin, euler, env, frame_number, osz):
+    def tile(bm, fb_block, origin, euler, env, frame_number, osz):
         dev = jax.lax.axis_index("rows")
         fb_block = fb_block.reshape(fb_block.shape[1:])  # drop the shard axis
         j = dev + n * jnp.arange(nb_local)  # owned global block ids
@@ -297,8 +289,7 @@ def render_frame_cyclic(
             cfg, origin, euler, frame_number, px, py_r, osz
         )
         color, write = shade_pixels(
-            bm, origins, dirs, px, py, py_r, origin, env, frame_number, cfg,
-            None, lt,
+            bm, origins, dirs, px, py, py_r, origin, env, frame_number, cfg
         )
         n_main = nb_local * bh * bw
         h = color[:n_main].reshape(nb_local, bh, bw, 3)
@@ -327,43 +318,28 @@ def render_frame_cyclic(
     return jax.shard_map(
         tile,
         mesh=mesh,
-        in_specs=(P(), P(), P("rows"), P(), P(), P(), P(), P()),
+        in_specs=(P(), P("rows"), P(), P(), P(), P(), P()),
         out_specs=P("rows"),
         check_vma=False,
-    )(bm, lt, framebuffer, jnp.asarray(origin, F32), jnp.asarray(euler, F32),
+    )(bm, framebuffer, jnp.asarray(origin, F32), jnp.asarray(euler, F32),
       env, jnp.asarray(frame_number, jnp.int32), osz)
 
 
-@functools.partial(
-    jax.jit, static_argnames=("max_steps", "mesh", "tile", "num_slots")
-)
+@functools.partial(jax.jit, static_argnames=("max_steps", "mesh"))
 def raytrace_sharded(
     bm: BrickMap,
     origins,
     rays,
     mesh: Mesh,
     max_steps: int = 2048,
-    lt=None,
-    tile: int = 2048,
-    num_slots: int = 16,
 ) -> Tuple[TraceOut, jax.Array]:
     """Batch ray query sharded over the flat ray axis.  Also returns the
     mesh-wide mean DDA step count (a ``psum`` diagnostic, the sharded analog
     of the 2D prototype's average-steps metric, ``DDATestCpp.cpp:618-625``).
+    Each device traces its shard with the platform's traversal."""
 
-    ``lt``: replicated HBM line table — each device traces its ray shard
-    through the flagship Pallas kernel instead of the XLA state machine
-    (same flagship-vs-XLA choice as the render entries)."""
-
-    def shard(bm, lt_s, o, r):
-        if lt_s is not None:
-            from voxelengine_tpu.ops.pallas_bigtrace import trace_brickmap_hbm
-
-            out = trace_brickmap_hbm(
-                bm, lt_s, o, r, max_steps, tile=tile, num_slots=num_slots
-            )
-        else:
-            out = trace_brickmap(bm, o, r, max_steps)
+    def shard(bm, o, r):
+        out = trace_rays(bm, o, r, max_steps)
         # f32 accumulator: an i32 sum wraps at frame-scale batches
         # (2M rays x ~1000+ steps exceeds 2^31)
         tot = jax.lax.psum(jnp.sum(out.steps.astype(F32)), "rows")
@@ -373,7 +349,7 @@ def raytrace_sharded(
     return jax.shard_map(
         shard,
         mesh=mesh,
-        in_specs=(P(), P(), P("rows"), P("rows")),
+        in_specs=(P(), P("rows"), P("rows")),
         out_specs=(P("rows"), P()),
         check_vma=False,
-    )(bm, lt, jnp.asarray(origins, F32), jnp.asarray(rays, F32))
+    )(bm, jnp.asarray(origins, F32), jnp.asarray(rays, F32))

@@ -2,8 +2,8 @@
 
 The reference exposes a small mutable-global surface (``Renderer.cuh:39-55``):
 ``SetEnvironment`` / ``SetFOV`` / ``SetOrthoWindowSize`` setters feeding
-``__device__`` symbols, plus ``RenderScreen`` and ``GetDirections``.  The
-TPU-native engine is functional (state travels through
+``__device__`` symbols, plus ``RenderScreen`` and ``GetDirections``.  This
+engine is functional (state travels through
 :class:`~voxelengine_tpu.config.RenderConfig` / ``Environment`` values), but
 this facade mirrors the reference call-shape for drop-in familiarity:
 
@@ -81,7 +81,7 @@ class Graphics:
         self._fb = render_frame(
             rt.world, self._fb, jnp.asarray(origin, jnp.float32),
             jnp.asarray(euler, jnp.float32), self._env,
-            jnp.int32(self._frame), self._cfg, rt.fused_table, rt.line_table,
+            jnp.int32(self._frame), self._cfg, rt.fused_table,
             ortho_size=self._ortho,
         )
         self._frame += 1

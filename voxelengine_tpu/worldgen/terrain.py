@@ -1,9 +1,9 @@
 """Procedural terrain generation.
 
-TPU-native equivalent of ``VoxelWorldBuilder.{cu,cuh}``: the per-voxel CUDA
+JAX equivalent of ``VoxelWorldBuilder.{cu,cuh}``: the per-voxel CUDA
 kernel (one thread per voxel, 8x8x8 blocks, ``VoxelWorldBuilder.cuh:22-26``)
 becomes a vectorized jnp evaluation over voxel coordinate grids, generated in
-z-slabs so worlds far larger than VMEM/HBM stream through the device.
+z-slabs so worlds far larger than device memory stream through the device.
 
 The terrain rule is the reference's exactly (``VoxelWorldBuilder.cu:17-34``):
 ``t = repeaterPerlin(pos * 0.005, 1.0, seed, octaves, 2.0, 0.5) * 1000``,
